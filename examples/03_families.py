@@ -13,7 +13,7 @@ n = 512
 a = np.random.default_rng(2).uniform(0, 100, (n, n)).astype(np.float32)
 np.fill_diagonal(a, 0)
 
-x_gj, _ = mi.inverse(a, method="blocked")     # MXU blocked Gauss-Jordan
+x_gj, _ = mi.inverse(a, method="blocked")     # blocked GEMM Gauss-Jordan
 x_lu, _ = mi.inverse(a, method="lu")          # blocked getrf + getri
 
 # Solve without forming the inverse (the reference can't):

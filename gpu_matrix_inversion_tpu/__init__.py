@@ -1,6 +1,6 @@
-"""TPU-native dense matrix-inversion library (JAX / XLA / Pallas / pjit).
+"""Dense matrix-inversion library for NVIDIA GPUs (JAX / XLA / Pallas).
 
-Re-implements, TPU-first, the capabilities of the OpenCL reference
+Re-implements the capabilities of the OpenCL reference
 ``MarchesiGabriele/gpu_matrix_inversion`` (see ``SURVEY.md``):
 
 - Gauss-Jordan inversion of the augmented ``[A|I]`` system with partial
@@ -13,12 +13,12 @@ Re-implements, TPU-first, the capabilities of the OpenCL reference
   (reference ``FP32_bench.cpp``, ``res_struct.h``).
 - A verification GEMM + Frobenius residual (reference ``matrix_multiply.cpp``).
 
-The TPU-native design replaces the reference's per-iteration kernel quintuple
-(argmax -> swap -> normalize -> eliminate, launched N times from the host)
-with fused Pallas kernels on VMEM tiles, a blocked right-looking variant whose
-trailing updates are MXU rank-k GEMMs, batched inversion via ``vmap``, an
-LU+getri path with iterative refinement, and a panel-sharded multi-chip path
-over an ICI mesh.
+The design replaces the reference's per-iteration kernel quintuple (argmax
+-> swap -> normalize -> eliminate, launched N times from the host) with a
+fused Pallas (Triton) kernel that runs every step of a small system in one
+program, a blocked right-looking variant whose trailing updates are rank-k
+GEMMs, an LU+getri path with iterative refinement, Cholesky for SPD input,
+and a panel-sharded multi-device path over a device mesh.
 """
 
 from gpu_matrix_inversion_tpu.api import (

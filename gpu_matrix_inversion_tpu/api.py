@@ -18,7 +18,7 @@ singular matrix (``matrix_inversion_FP32.cpp:11-12``, ``README.md:53-54``,
 infrastructure errors as "singular matrix" misdiagnoses real bugs.
 
 This module is the host-side shell; all compute routes through
-:mod:`gpu_matrix_inversion_tpu.models.solver` onto TPU.
+:mod:`gpu_matrix_inversion_tpu.models.solver` onto the device.
 """
 
 from __future__ import annotations
@@ -91,8 +91,8 @@ def matrix_inversion_fp32(flat, order: int, *, verbose: bool = False,
 def matrix_inversion_fp64(flat, order: int) -> np.ndarray:
     """Reference ``matrix_inversion_FP64()`` (headers.h:9).
 
-    Note (SURVEY.md section 7, hard part c): FP64 on TPU is emulated/slow;
-    this keeps API parity while the performance path is FP32 (+refinement).
+    FP64 runs natively wherever the device has double-precision units; the
+    blocked and LU paths serve it like FP32.
     """
     return _invert_flat(flat, order, np.float64, pivot=True)
 
@@ -108,7 +108,7 @@ def identity_check_tolerance(order: int, dtype) -> float:
 
     The reference's check is *exact* (left half == I elementwise,
     ``matrix_inversion_FP32.cpp:814-835``) because its fixColumn zeroes the
-    pivot column identically; a blocked MXU algorithm cannot promise exact
+    pivot column identically; a blocked GEMM algorithm cannot promise exact
     zeros, so the promoted diagnostic gates max|A@X - I| at a few orders
     above the rounding floor. Growth is taken LINEAR in n (elimination
     error compounds with the step count times a growth factor): the r3
@@ -193,18 +193,6 @@ def _bench(flat, order: int, dtype, *, pivot: bool,
     else:
         res.inversa32 = out.astype(np.float32)
     res.times = dict(timer.times, total=timer.total())
-    # MATINV_DEBUG_PHASES=1: fill the reference's makeAug/pivot/row/column
-    # Res slots via the differential phase profiler (only meaningful where
-    # `auto` routes to the blocked path). Runs AFTER `total` is finalized
-    # so the profiler's own compiles never pollute the measured slots, and
-    # never overwrites the span-measured total_compute.
-    import os
-    if (os.environ.get("MATINV_DEBUG_PHASES") == "1" and res.ok
-            and dtype == np.float32 and order >= 512):
-        from gpu_matrix_inversion_tpu.benchmarks.phases import measure_phases
-        phases = measure_phases(order, pivot=pivot, k=2, reps=1)
-        phases.pop("total_compute", None)
-        res.times.update(phases)
     return res
 
 
@@ -227,7 +215,7 @@ def no_pivots_bench(flat, order: int, *,
     (The reference declares this but ships an empty ``no_pivot_bench.cpp``;
     SURVEY.md C10. Implemented for real here.) The crr/copy Res slots of
     the orphaned no-pivot benchmark (``..._no_pivots_benchmark.cpp:492-495``)
-    are zero-filled: both stages are fused into the factor kernel on TPU
+    are zero-filled: both stages are fused into the factorization here
     (see ``Res.times_vector``).
     """
     res = _bench(flat, order, np.float64, pivot=False,
@@ -239,7 +227,7 @@ def no_pivots_bench(flat, order: int, *,
 
 def matrix_multiply(inverse_flat, a_flat, order: int) -> float:
     """Verification GEMM + residual (reference ``matrix_multiply.cpp:15``):
-    computes ``sqrt(N) - ||A_inv @ A||_F`` with the product on-device (MXU)."""
+    computes ``sqrt(N) - ||A_inv @ A||_F`` with the product on-device."""
     inv = validate_flat_matrix(inverse_flat, order)
     a = validate_flat_matrix(a_flat, order)
     if inv is None or a is None:

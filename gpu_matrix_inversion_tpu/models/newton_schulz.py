@@ -8,8 +8,8 @@ family computes A^-1 by the quadratically-convergent fixed point
 from the classic Pan-Reif initialization ``X_0 = A^T / (||A||_1 ||A||_inf)``
 (guarantees ||I - A X_0|| < 1 for any nonsingular A in exact arithmetic,
 though convergence speed degrades with conditioning). Each step is two
-GEMMs -- pure MXU work, no pivoting, no data-dependent control flow: the
-most TPU-shaped inversion possible, and the natural bf16-friendly family
+GEMMs -- no pivoting, no data-dependent control flow: the most
+GEMM-shaped inversion possible, and the natural bf16-friendly family
 (early iterations can run in bfloat16, late ones in fp32).
 
 Use cases: well-conditioned matrices, warm starts (refining a previous
@@ -33,7 +33,7 @@ def newton_schulz_inverse(a: jax.Array, *, iters: int = 30,
     Args:
       iters: fixed iteration count (static; ~2 bits of accuracy doubling per
         step once contracting).
-      mixed: run the first 2/3 of the iterations in bfloat16 (MXU-friendly),
+      mixed: run the first 2/3 of the iterations in bfloat16,
         the rest in fp32.
     """
     if a.ndim < 2 or a.shape[-1] != a.shape[-2]:

@@ -1,68 +1,107 @@
 """Algorithm dispatch: choose the right inversion path for size/batch/dtype.
 
-This is the TPU-native replacement for the reference's compile-time variant
+This is the runtime replacement for the reference's compile-time variant
 selection (``#define FP32 / PIVOTS`` in ``main_file.cpp:14-18``): one entry
 point that routes to
 
 - ``spec``     pure-jnp Gauss-Jordan (executable spec; any backend)
-- ``fused``    single fused Pallas kernel, whole [A|I] resident in VMEM
-               (small N and batched workloads)
-- ``blocked``  blocked Gauss-Jordan with MXU rank-k trailing updates (large N)
+- ``fused``    one fused Pallas kernel per system, whole [A|I] held by one
+               program (small N and batched workloads; CUDA devices)
+- ``blocked``  blocked Gauss-Jordan with rank-k GEMM trailing updates
+               (large N)
 - ``lu``       LU factorization + getri-style triangular solves
-- ``ns``       Newton-Schulz iteration (pivot-free, pure MXU; well-
+- ``ns``       Newton-Schulz iteration (pivot-free, pure GEMMs; well-
                conditioned matrices and warm starts)
 - ``cholesky`` potrf/potri for symmetric positive-definite input: half the
                LU MACs and no pivot-search serial chain at all
-- ``sharded``  panel-sharded multi-chip path over a device mesh
+- ``sharded``  panel-sharded multi-device path over a device mesh
 
-``auto`` picks by shape: batched or small single matrices go to ``fused``
-(falling back to ``spec`` off-TPU), large single matrices to ``blocked``.
+``auto`` picks by shape, dtype and platform (``_resolve``): batched or small
+single fp32/bf16 matrices go to ``fused`` on CUDA devices and to ``spec``
+elsewhere, large single matrices to ``blocked``, and single matrices too
+large for one device's memory to ``sharded`` when a mesh is available.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import jax
 import jax.numpy as jnp
 
 from gpu_matrix_inversion_tpu.ops.gauss_jordan import gauss_jordan_inverse
-from gpu_matrix_inversion_tpu.ops.fused import FUSED_MAX_N
+from gpu_matrix_inversion_tpu.ops.fused import fused_supported
+from gpu_matrix_inversion_tpu.utils.platform import (compiled_kernels,
+                                                     platform_of)
 
 METHODS = ("auto", "spec", "fused", "blocked", "lu", "cholesky", "sharded",
            "ns")
 
 _BLOCKED_MIN_N = 512
-# auto -> sharded capacity gate (VERDICT r2 #7): past ~32768^2 the fp32
-# slot-layout working set (8*m^2 bytes = 8.6 GB at 32768) crowds a single
-# 16 GB-HBM chip, and past 65536 the Pallas pivot search is gone entirely
-# (ops/blocked._select_block_params) -- so when a mesh is available, large
-# single matrices route to the panel-sharded path instead of warning and
-# falling to the slow jnp loop.
-SHARDED_AUTO_MIN_N = 32768
+
+
+def sharded_auto_min_n(bytes_limit: int, itemsize: int = 4) -> int:
+    """Smallest order whose slot-layout working set -- the (m, 2m) system,
+    2 * itemsize * m^2 bytes (8 m^2 in fp32) -- takes at least half of a
+    device's ``bytes_limit``; from there on ``auto`` moves single matrices
+    to the mesh. The other half is the headroom for the input, the output
+    and the Newton polish's temporaries."""
+    per = 4 * itemsize            # 2 * itemsize * m^2 >= bytes_limit / 2
+    n = math.isqrt(bytes_limit // per)
+    if per * n * n < bytes_limit:
+        n += 1
+    return n
+
+
+def _device_bytes_limit(a) -> int | None:
+    """Memory limit of the device ``a`` lands on (None where the runtime
+    reports no memory stats, as on the CPU)."""
+    devs = (a.devices() if isinstance(a, jax.Array)
+            and not isinstance(a, jax.core.Tracer) else None)
+    dev = next(iter(devs)) if devs else jax.devices(platform_of(a))[0]
+    stats = dev.memory_stats() or {}
+    return stats.get("bytes_limit")
 
 
 def _mesh_available(mesh) -> bool:
     if mesh is not None:
         return True
-    try:
-        from gpu_matrix_inversion_tpu.parallel.mesh import (
-            default_platform_devices)
-        return len(default_platform_devices()) > 1
-    except RuntimeError:  # pragma: no cover - no backend at all
+    from gpu_matrix_inversion_tpu.parallel.mesh import (
+        default_platform_devices)
+    return len(default_platform_devices()) > 1
+
+
+def _sharded_auto(a, mesh) -> bool:
+    """Whether ``auto`` sends a single matrix to the mesh: it must not fit
+    comfortably in one device's memory, and a mesh must exist."""
+    if not _mesh_available(mesh):
         return False
+    limit = _device_bytes_limit(a)
+    if limit is None:
+        return False
+    # bf16 computes in fp32, so its working set is fp32-sized.
+    itemsize = max(a.dtype.itemsize, 4)
+    return a.shape[-1] >= sharded_auto_min_n(limit, itemsize)
 
 
 def _resolve(method: str, a: jax.Array, mesh=None) -> str:
+    """The route for ``method`` on this input: an explicit choice by shape,
+    dtype and platform. The fused kernel runs only where it compiles (CUDA)
+    and for the dtypes and orders it serves; elsewhere -- including an
+    explicit ``method="fused"`` -- the plain jnp spec runs instead."""
+    fused_ok = (fused_supported(a)
+                and compiled_kernels(platform_of(a)))
+    if method == "fused":
+        return "fused" if fused_ok else "spec"
     if method != "auto":
         return method
     n = a.shape[-1]
-    if a.ndim == 2 and n >= SHARDED_AUTO_MIN_N and _mesh_available(mesh):
+    if a.ndim == 2 and _sharded_auto(a, mesh):
         return "sharded"
-    fits_fused = (n <= FUSED_MAX_N
-                  and a.dtype in (jnp.float32, jnp.bfloat16))
-    if fits_fused and (a.ndim > 2 or n < _BLOCKED_MIN_N):
-        return "fused"
+    small = fused_supported(a) and (a.ndim > 2 or n < _BLOCKED_MIN_N)
+    if small:
+        return "fused" if fused_ok else "spec"
     if a.dtype in (jnp.float32, jnp.bfloat16) or n >= _BLOCKED_MIN_N:
         return "blocked"
     return "spec"
@@ -70,16 +109,14 @@ def _resolve(method: str, a: jax.Array, mesh=None) -> str:
 
 def inverse(a: jax.Array, *, method: str = "auto", pivot: bool = True,
             block_size: int | None = None, mesh=None,
-            precision: str | None = None,
-            search_bf16: bool | None = None) -> Tuple[jax.Array, jax.Array]:
+            precision: str | None = None) -> Tuple[jax.Array, jax.Array]:
     """Invert ``a`` (shape ``(..., n, n)``); returns ``(inverse, ok)``.
 
     ``ok`` is the singularity flag per the reference's empty-on-singular
     contract (SURVEY.md section 2, C10). ``method="sharded"`` runs the
     panel-sharded multi-chip path over ``mesh`` (default: all devices).
-    ``precision``/``search_bf16`` apply to the blocked and sharded paths
-    (the batched sharded path takes ``precision`` only); the remaining
-    methods ignore them.
+    ``precision`` applies to the blocked and sharded paths; the remaining
+    methods ignore it.
     """
     if method not in METHODS:
         raise ValueError(f"method must be one of {METHODS}, got {method!r}")
@@ -96,8 +133,6 @@ def inverse(a: jax.Array, *, method: str = "auto", pivot: bool = True,
         if precision is not None:
             kwargs["precision"] = precision
         if a.ndim == 2:
-            if search_bf16 is not None:
-                kwargs["search_bf16"] = search_bf16
             return sharded_blocked_inverse(a, mesh=mesh, pivot=pivot,
                                            **kwargs)
         a3 = a.reshape((-1,) + a.shape[-2:])
@@ -105,11 +140,8 @@ def inverse(a: jax.Array, *, method: str = "auto", pivot: bool = True,
                                           **kwargs)
         return inv.reshape(a.shape), ok.reshape(a.shape[:-2])
     if resolved == "fused":
-        try:
-            from gpu_matrix_inversion_tpu.ops.fused import fused_inverse
-            return fused_inverse(a, pivot=pivot)
-        except NotImplementedError:
-            resolved = "spec"
+        from gpu_matrix_inversion_tpu.ops.fused import fused_inverse
+        return fused_inverse(a, pivot=pivot)
     if resolved == "blocked":
         from gpu_matrix_inversion_tpu.ops.blocked import blocked_inverse
         kwargs = {}
@@ -117,8 +149,6 @@ def inverse(a: jax.Array, *, method: str = "auto", pivot: bool = True,
             kwargs["block_size"] = block_size
         if precision is not None:
             kwargs["precision"] = precision
-        if search_bf16 is not None:
-            kwargs["search_bf16"] = search_bf16
         return blocked_inverse(a, pivot=pivot, **kwargs)
     if resolved == "lu":
         from gpu_matrix_inversion_tpu.ops.lu import lu_inverse, lu_inverse_fast
@@ -134,6 +164,10 @@ def inverse(a: jax.Array, *, method: str = "auto", pivot: bool = True,
         from gpu_matrix_inversion_tpu.models.newton_schulz import (
             newton_schulz_inverse)
         return newton_schulz_inverse(a)
+    if a.dtype == jnp.bfloat16:
+        # bf16 is an I/O format: eliminate in fp32, return bf16.
+        inv, ok = gauss_jordan_inverse(a.astype(jnp.float32), pivot=pivot)
+        return inv.astype(jnp.bfloat16), ok
     return gauss_jordan_inverse(a, pivot=pivot)
 
 
@@ -206,8 +240,9 @@ def solve(a: jax.Array, b: jax.Array, *, method: str = "auto",
         inv, ok = inverse(a, method=method, pivot=pivot,
                           block_size=block_size, mesh=mesh)
         # Under an outer jit `inv` is a gather/select-chain intermediate
-        # consumed only by the GEMMs below -- the XLA:TPU dead-intermediate
-        # rewrite trigger (DESIGN.md section 9; same guard as ops/refine.py).
+        # consumed only by the GEMMs below -- the pattern a compiler
+        # dead-intermediate rewrite once corrupted (DESIGN.md section 8;
+        # same guard as ops/refine.py).
         inv = jax.lax.optimization_barrier(inv)
         x = jnp.matmul(inv, b, preferred_element_type=inv.dtype,
                        precision=hp)
@@ -254,8 +289,7 @@ class Inverter:
         a = self._cast(a)
         x, ok = inverse(a, method=cfg.method, pivot=cfg.pivot,
                         block_size=cfg.block_size, mesh=self.mesh,
-                        precision=cfg.precision,
-                        search_bf16=cfg.search_bf16)
+                        precision=cfg.precision)
         if cfg.refine_iters > 0:
             from gpu_matrix_inversion_tpu.ops.refine import (
                 newton_schulz_refine)

@@ -1,4 +1,5 @@
-"""Compute kernels: pure-jnp executable specs and Pallas TPU kernels."""
+"""Compute kernels: pure-jnp executable specs, blocked GEMM paths and the
+fused Pallas (Triton) kernel."""
 
 from gpu_matrix_inversion_tpu.ops.gauss_jordan import (
     gauss_jordan_inverse,

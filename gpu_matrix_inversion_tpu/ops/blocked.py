@@ -1,38 +1,33 @@
-"""Blocked right-looking Gauss-Jordan: MXU rank-b trailing updates.
+"""Blocked right-looking Gauss-Jordan: rank-b trailing updates as GEMMs.
 
 The performance path for large N (BASELINE.md configs[1], 4096^2). The
 reference's ``fixColumnKernel`` performs the O(N^2) rank-1 trailing update
 once per iteration, N times (``matrix_inversion_FP32.cpp:17-63``) -- pure
-bandwidth-bound vector work. On TPU the same total 4*N^3 flops are regrouped
-into N/b panel steps whose trailing update is one (m x b) @ (b x 2m) rank-b
-GEMM on the MXU, turning the algorithm compute-bound.
+bandwidth-bound vector work. Here the same elimination is regrouped into
+N/b panel steps whose trailing update is one rank-b GEMM, turning the
+algorithm compute-bound.
 
 Per panel k (pivot columns kb .. kb+b-1):
 
-1. *Pivot search* (Pallas kernel, VMEM-resident): a b-step Gauss-Jordan pass
-   over the (m, b) strip determines the b pivot rows -- the blocked
-   generalization of the reference's two-stage workgroup-partial argmax
-   (FP32.cpp:68-142). Swap-free: a "used rows" mask replaces physical row
-   exchanges (half the VMEM traffic), and the search runs in bfloat16 when
-   the compute dtype is fp32 (pivot *choice* is robust to 8-bit mantissas;
-   all subsequent arithmetic uses the fp32 data). Only the pivot-row indices
-   escape the kernel.
+1. *Pivot search*: a b-step swap-free Gauss-Jordan pass over the (m, b)
+   strip determines the b pivot rows -- the blocked generalization of the
+   reference's two-stage workgroup-partial argmax (FP32.cpp:68-142). A
+   "used rows" mask replaces physical row exchanges.
 2. *Logical permutation*: rows are never physically moved during
    elimination (the reference's pivotElementsKernel and a naive blocked
-   equivalent both burn a full pass over the matrix per swap batch).
-   Pivot rows stay in place; a cross-panel used-row mask keeps the search
-   honest, and ONE gather at the very end puts the inverse rows in order.
-3. *Block elimination*: with D = the panel's pivot-row block (inverted by a
-   small VMEM GJ kernel in full precision), S = D^-1 @ block_rows. A single
-   rank-2b MXU GEMM both eliminates every other row AND deposits S into the
-   pivot rows: aug -= [L - P | P] @ [S ; block_rows], where P is the one-hot
-   pivot-row selector -- so each panel makes exactly one read+write pass
-   over the matrix. In exact arithmetic this equals the b sequential
-   pivoted eliminations (standard blocked-pivoting identity).
+   equivalent both burn a full pass over the matrix per swap batch). Pivot
+   rows stay in place; a cross-panel used-row mask keeps the search honest,
+   and ONE gather at the very end puts the inverse rows in order.
+3. *Block elimination*: the search carries an identity probe through the
+   same steps, which yields the panel's composite transform C; its whole
+   effect on any columns X is ``X + C @ X[pivrows]`` -- one rank-b GEMM
+   that both eliminates every other row AND deposits the scaled pivot
+   rows. In exact arithmetic this equals the b sequential pivoted
+   eliminations (with D = the pivot-row block,
+   ``C = (E - L_masked) @ D^-1 - E``).
 
-All shapes are static across panels, so the panel loop is one
-``lax.fori_loop`` -- no dynamic shapes, no recompilation, one XLA program.
-FP64 falls back to a pure-jnp panel loop (Mosaic kernels are 32-bit).
+All shapes are static across panels, so the whole inversion is one XLA
+program with no dynamic shapes and no recompilation.
 """
 
 from __future__ import annotations
@@ -44,14 +39,11 @@ import jax.numpy as jnp
 import numpy as np
 from jax import lax
 
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from gpu_matrix_inversion_tpu.ops.gauss_jordan import _i0
+from gpu_matrix_inversion_tpu.ops.fused import _round_up
 
-from gpu_matrix_inversion_tpu.ops.gauss_jordan import _gauss_jordan_aug, _i0
-from gpu_matrix_inversion_tpu.ops.fused import (_round_up, gj_eliminate,
-                                                tpu_available)
-
-DEFAULT_BLOCK_SIZE = 256
+# Panel width: a starting value, not yet tuned on the card.
+DEFAULT_BLOCK_SIZE = 128
 
 _PRECISIONS = {
     "default": jax.lax.Precision.DEFAULT,
@@ -60,427 +52,24 @@ _PRECISIONS = {
 }
 
 
-# --------------------------------------------------------------------------
-# Pallas kernels
-# --------------------------------------------------------------------------
-
-def _panel_factor_kernel(kb_ref, stripT_ref, used_ref, *rest, m: int, b: int,
-                         sub: int, kmask: int, pivot: bool, emit_ct: bool):
-    """Swap-free pivot search on the VMEM-resident TRANSPOSED (b, m) strip.
-
-    Runs b Gauss-Jordan steps tracking a used-row mask instead of swapping
-    (selecting the max-|value| row among unused rows is mathematically the
-    same pivot sequence as partial pivoting with row exchanges). The mask is
-    carried ACROSS panels (rows never physically move; the caller reorders
-    once at the very end) and arrives as an input; the caller updates it by
-    scattering the returned pivot rows.
-
-    Lane-major layout: the strip is transposed so every length-m vector
-    (used mask, current column, packed pivot key) is a (1, m) ROW -- Mosaic
-    lane-pads (m, 1) temporaries to (m, 128) on the scoped VMEM stack, which
-    capped the old row-major kernel at m = 4096; lane-major vectors pad to
-    (8, m) instead (16x smaller) and lane reductions are faster than sublane
-    ones. Iotas are kept to (1, m)/(b, 1) shapes for the same reason.
-
-    Sub-blocked elimination: the per-step rank-1 update is confined to the
-    current ``sub``-row sub-panel plus a (sub, m) transform probe (the
-    in-kernel version of the group-level G-probe trick: after the
-    sub-panel, probe - psel is exactly C^T of T X = X + C X[pivrows]).
-    Later rows then get ONE deferred rank-``sub`` MXU update per sub-panel,
-    and rows of finished sub-panels are never touched again (their values
-    are never read for pivot selection). Per-step VPU work drops from
-    (b, m) to (2*sub, m), which is what made the flat kernel the blocked
-    path's second-largest cost after the trailing GEMMs.
-
-    ``emit_ct`` (round 3): additionally emit the FULL-PANEL composite
-    transform C^T (b, m) and a zero-pivot ok flag. C generalizes the
-    sub-panel probe across the whole panel: after sub-panel s, its
-    (probe - psel) rows are deposited into ct and every LATER sub-panel's
-    deferred update is applied to the already-deposited rows as well
-    (subtracting the one-hot early is sound -- later transforms act as
-    identity on e_p for used p, since e_p[pivrows'] = 0). The caller then
-    applies the whole panel to any columns X as X + C @ X[pivrows]: ONE
-    rank-b MXU GEMM that eliminates AND deposits the scaled pivot rows --
-    replacing both the separate (b, b) block-inverse kernel (the
-    reference's fixRow tier, matrix_inversion_FP32.cpp:150-164) and the
-    rank-2b [L-P|P] update with half the rank. This is the fusion of
-    maxPivot/finalMaxPivot + fixRow into one VMEM-resident kernel
-    (FP32.cpp:68-164).
-    """
-    if emit_ct:
-        # The ct OUTPUT doubles as the working buffer: rows [0, r0) hold the
-        # already-deposited transform rows, rows [r0, b) the strip still
-        # being eliminated. Sound because the two populations trade places
-        # exactly in step: finished strip rows are never read again (their
-        # values never feed pivot selection or the deferred updates, which
-        # read only LATER rows), and each sub-panel's ct_l lands in the rows
-        # it just finished. Drops the kernel from 3 (b, m) VMEM buffers to
-        # the search kernel's 2, which is what lets ``_emit_fused`` extend
-        # the fused path to b*m <= 64*16384 (the 16384^2 capacity point).
-        pivrows_ref, ct_ref, ok_ref, probe, psel = rest
-        w = ct_ref
-    else:
-        pivrows_ref, w, probe, psel = rest
-    dt = w.dtype
-    kb = kb_ref[0, 0]
-    lane_m = lax.broadcasted_iota(jnp.int32, (1, m), 1)   # strip-row ids
-    rows_b = lax.broadcasted_iota(jnp.int32, (b, 1), 0)   # panel-column ids
-    rows_s = lax.broadcasted_iota(jnp.int32, (sub, 1), 0)
-
-    w[:, :] = stripT_ref[:, :]
-    used = jnp.max(used_ref[:, :].astype(jnp.float32), axis=0,
-                   keepdims=True)  # (1, m)
-    pivrows_ref[:, :] = jnp.zeros((b, 1), jnp.int32)
-    col = w[0:1, :]
-    ok = jnp.int32(1)
-
-    for s in range(b // sub):  # static unroll; all slices static
-        r0 = s * sub
-        probe[:, :] = jnp.zeros((sub, m), dt)
-        psel[:, :] = jnp.zeros((sub, m), dt)
-
-        def step(r2, carry, r0=r0):
-            # col (1, m) carried from the previous update pass (saves one
-            # traversal); pivot chosen by a single packed-key max (|value|
-            # bits + reversed row index for first-match ties) -- ops/fused.
-            used, col, ok = carry
-            ws = w[r0:r0 + sub, :]
-            if pivot:
-                bits = lax.bitcast_convert_type(
-                    jnp.abs(col).astype(jnp.float32), jnp.int32)
-                # kmask = next_pow2(m)-1: the low index bits replace that
-                # many |value| mantissa bits (14 at m=16384; pivot choice
-                # is robust to far coarser -- bf16 search was acceptable).
-                key = jnp.where(used > 0, jnp.full_like(lane_m, -1),
-                                (bits & ~jnp.int32(kmask))
-                                | (jnp.int32(kmask) - lane_m))
-                p = jnp.int32(kmask) - (jnp.max(key) & jnp.int32(kmask))
-            else:
-                p = kb + r0 + r2
-            used = jnp.where(lane_m == p, jnp.ones_like(used), used)
-            pivrows_ref[:, :] = jnp.where(rows_b == r0 + r2, p,
-                                          pivrows_ref[:, :])
-
-            # Inject the probe's identity one BEFORE this step's
-            # elimination (late injection is sound: prior sub-panel steps
-            # act as identity on a fresh e_p column). Built as a product of
-            # 1-D masks: a broadcast 2D bool `and` trips a Mosaic relayout
-            # bug ("non-singleton logical dimension is replicated").
-            onehot = ((rows_s == r2).astype(dt) * (lane_m == p).astype(dt))
-            pr = probe[:, :] + onehot
-            psel[:, :] = psel[:, :] + onehot
-
-            lane_p = (lane_m == p)
-            pivcol_w = jnp.sum(jnp.where(lane_p, ws, jnp.zeros_like(ws)),
-                               axis=1, keepdims=True)    # (sub, 1)
-            pivcol_pr = jnp.sum(jnp.where(lane_p, pr, jnp.zeros_like(pr)),
-                                axis=1, keepdims=True)   # (sub, 1)
-            piv = jnp.sum(jnp.where(rows_s == r2, pivcol_w,
-                                    jnp.zeros_like(pivcol_w))
-                          ).astype(jnp.float32)
-            ok = ok * (piv != 0).astype(jnp.int32)
-            piv_safe = jnp.where(piv == 0, jnp.ones_like(piv),
-                                 piv).astype(dt)
-            norm_w = pivcol_w / piv_safe
-            norm_pr = pivcol_pr / piv_safe
-            factors = jnp.where(lane_p, jnp.zeros_like(col), col)  # (1, m)
-            new_ws = jnp.where(lane_p, jnp.broadcast_to(norm_w, (sub, m)),
-                               ws - norm_w * factors)
-            w[r0:r0 + sub, :] = new_ws
-            probe[:, :] = jnp.where(
-                lane_p, jnp.broadcast_to(norm_pr, (sub, m)),
-                pr - norm_pr * factors)
-            col_next = jnp.sum(jnp.where(rows_s == r2 + 1, new_ws,
-                                         jnp.zeros_like(new_ws)),
-                               axis=0, keepdims=True)  # (1, m)
-            return used, col_next, ok
-
-        used, col, ok = lax.fori_loop(jnp.int32(0), jnp.int32(sub), step,
-                                      (used, col, ok))
-
-        # Precision by search dtype: the fp32 search needs explicit
-        # HIGHEST -- Mosaic's *default* f32 dot_general rounds the DATA
-        # operands to bf16 (a one-hot operand does not make it exact),
-        # which would put ~1e-3 of drift into the working set and
-        # defeat an exact partial-pivoting oracle (only the pivot
-        # CHOICE leaves this kernel; drift degrades pivot quality, not
-        # correctness). The bf16 search keeps native bf16 operands at
-        # DEFAULT: one bf16 MXU pass over bf16 data is already exact
-        # into the f32 accumulator, and bf16 operands with an fp32
-        # contract precision fail to compile ("Bad lhs type") -- this
-        # also preserves the half-VMEM footprint the m > 16384 gating
-        # was sized against.
-        prec = (lax.Precision.DEFAULT if dt == jnp.bfloat16
-                else lax.Precision.HIGHEST)
-        ct_l = probe[:, :] - psel[:, :]                    # (sub, m)
-        if r0 + sub < b:
-            # Deferred composite update of the later rows: (X^T)_new =
-            # X^T + X^T[:, pivlanes] @ C^T with C^T = probe - psel, both
-            # (sub, m); two MXU dots replace sub rank-1 passes per row.
-            wl = w[r0 + sub:, :]                           # (bl, m)
-            g = lax.dot_general(wl, psel[:, :], (((1,), (1,)), ((), ())),
-                                preferred_element_type=jnp.float32,
-                                precision=prec)
-            upd = lax.dot_general(g.astype(dt), ct_l,
-                                  (((1,), (0,)), ((), ())),
-                                  preferred_element_type=jnp.float32,
-                                  precision=prec)
-            new_wl = wl + upd.astype(dt)
-            w[r0 + sub:, :] = new_wl
-            col = new_wl[0:1, :]
-        if emit_ct:
-            if r0 > 0:
-                # The finished probe rows are working-set columns too: give
-                # them this sub-panel's deferred transform (same two dots).
-                ct0 = ct_ref[0:r0, :]
-                g0 = lax.dot_general(ct0, psel[:, :],
-                                     (((1,), (1,)), ((), ())),
-                                     preferred_element_type=jnp.float32,
-                                     precision=prec)
-                upd0 = lax.dot_general(g0.astype(dt), ct_l,
-                                       (((1,), (0,)), ((), ())),
-                                       preferred_element_type=jnp.float32,
-                                       precision=prec)
-                ct_ref[0:r0, :] = ct0 + upd0.astype(dt)
-            ct_ref[r0:r0 + sub, :] = ct_l
-
-    if emit_ct:
-        # Finite probe (0*x sums to 0 iff every element is finite) folded
-        # into the zero-pivot flag, mirroring _small_inv_kernel.
-        fin = jnp.sum(ct_ref[:, :] * jnp.zeros((b, m), dt))
-        ok_ref[:, :] = jnp.broadcast_to(ok * (fin == 0).astype(jnp.int32),
-                                        (1, 1))
-
-
-def _panel_factor_kernel2(kb_ref, stripT_ref, used_ref, *rest, m: int, b: int,
-                          sub: int, kmask: int, pivot: bool, emit_ct: bool):
-    """Latency-tuned rewrite of ``_panel_factor_kernel`` (round 4).
-
-    Same mathematics, same pivot sequence, bit-identical outputs (pinned by
-    a CPU interpret-mode parity test) -- but the per-step serial dependency
-    chain, which floors the 4096^2 blocked path at ~2.2 us/pivot-step
-    (DESIGN.md 6b: 9.2 ms of the 14.9 ms total is this chain), is
-    restructured around three ideas:
-
-    1. **No scalar round trips in the loop.** v1 decodes the pivot index to
-       a scalar (``p = kmask - (max(key) & kmask)``), compares lanes against
-       it, extracts the pivot VALUE to a scalar for the ok flag, and writes
-       pivrows via a scalar select -- each a vector->scalar->vector round
-       trip on the critical path. Here the pivot lane mask comes straight
-       from ``key == max(key)`` (packed keys are unique per lane: the low
-       bits hold the lane index), the ok flag accumulates as a (1, 1)
-       vector product, and pivot INDICES are reconstructed once per
-       sub-panel from the accumulated one-hot rows (an int32 masked
-       reduce), entirely off the per-step chain.
-    2. **One fused update instead of two.** The working rows and the
-       transform-probe rows receive the SAME select/normalize/eliminate
-       formula, so they live in one merged (2*sub, m) buffer and each step
-       issues ONE pivot-column reduce and ONE update over (2*sub, m)
-       instead of two dependent (sub, m) pairs.
-    3. **The strip rows are never written back per step.** v1 wrote the
-       eliminated sub-panel rows into the (b, m) working buffer every step;
-       finished rows are never read again (v1's own invariant), so v2 keeps
-       the active sub-panel entirely in the merged scratch.
-    """
-    if emit_ct:
-        pivrows_ref, ct_ref, ok_ref, wp, psel = rest
-        w = ct_ref
-    else:
-        pivrows_ref, w, wp, psel = rest
-    dt = w.dtype
-    kb = kb_ref[0, 0]
-    lane_m = lax.broadcasted_iota(jnp.int32, (1, m), 1)   # strip-row ids
-    rows_s = lax.broadcasted_iota(jnp.int32, (sub, 1), 0)
-    rows_2s = lax.broadcasted_iota(jnp.int32, (2 * sub, 1), 0)
-
-    used = jnp.max(used_ref[:, :].astype(jnp.float32), axis=0,
-                   keepdims=True)  # (1, m)
-    col = stripT_ref[0:1, :]
-    okv = jnp.ones((1, 1), jnp.float32)
-
-    for s in range(b // sub):  # static unroll; all slices static
-        r0 = s * sub
-        # Merged working set: rows [0, sub) = the active strip sub-panel,
-        # rows [sub, 2*sub) = the transform probe (initially zero). The
-        # first sub-panel reads the input ref directly; later ones read the
-        # deferred-updated rows in the (b, m) buffer -- so v1's upfront
-        # whole-strip copy is gone too (rows land in w only via the
-        # deferred updates; rows [0, sub) are never buffered at all).
-        wp[0:sub, :] = (stripT_ref[r0:r0 + sub, :] if s == 0
-                        else w[r0:r0 + sub, :])
-        wp[sub:, :] = jnp.zeros((sub, m), dt)
-        psel[:, :] = jnp.zeros((sub, m), dt)
-
-        def step(r2, carry):
-            used, col, okv = carry
-            if pivot:
-                bits = lax.bitcast_convert_type(
-                    jnp.abs(col).astype(jnp.float32), jnp.int32)
-                key = jnp.where(used > 0, jnp.full_like(lane_m, -1),
-                                (bits & ~jnp.int32(kmask))
-                                | (jnp.int32(kmask) - lane_m))
-                # The packed key is unique per lane (low bits = reversed
-                # lane index), so key == max(key) is a one-hot lane mask --
-                # no scalar pivot-index decode on the chain.
-                lane_p = (key == jnp.max(key, axis=1, keepdims=True))
-            else:
-                lane_p = (lane_m == kb + jnp.int32(r0) + r2)
-            used = jnp.where(lane_p, jnp.ones_like(used), used)
-            lp = lane_p.astype(dt)                          # (1, m)
-
-            # Inject the probe's identity one-hot (same late-injection
-            # argument as v1) and record it for psel/pivrows.
-            cur = wp[:, :] + (rows_2s == sub + r2).astype(dt) * lp
-            psel[:, :] = psel[:, :] + (rows_s == r2).astype(dt) * lp
-
-            pivcol = jnp.sum(jnp.where(lane_p, cur, jnp.zeros_like(cur)),
-                             axis=1, keepdims=True)        # (2*sub, 1)
-            pv = jnp.sum(jnp.where(rows_2s == r2, pivcol,
-                                   jnp.zeros_like(pivcol)),
-                         axis=0, keepdims=True)             # (1, 1)
-            okv = okv * (pv != 0).astype(jnp.float32)
-            norm = pivcol / jnp.where(pv == 0, jnp.ones_like(pv),
-                                      pv).astype(dt)
-            factors = jnp.where(lane_p, jnp.zeros_like(col), col)
-            new = jnp.where(lane_p, jnp.broadcast_to(norm, (2 * sub, m)),
-                            cur - norm * factors)
-            wp[:, :] = new
-            # Next step's strip column = working row r2+1 (zero after the
-            # last step; the deferred update below rebuilds it).
-            col = jnp.sum(jnp.where(rows_2s == r2 + 1, new,
-                                    jnp.zeros_like(new)),
-                          axis=0, keepdims=True)            # (1, m)
-            return used, col, okv
-
-        if _v2_unroll(m, b):
-            # Static unroll: measured 2.05x on the whole kernel at m=4096
-            # (80.2 vs 164.1 us/launch) -- the fori body forces VMEM
-            # round trips of the (2*sub, m) working set every step, while
-            # the unrolled code keeps it in registers across steps. The
-            # cost is VMEM *stack* for the live unrolled temporaries
-            # (~11.5 MB at m=8192 -- the gate below keeps it compiling).
-            carry = (used, col, okv)
-            for r2s in range(sub):
-                carry = step(jnp.int32(r2s), carry)
-            used, col, okv = carry
-        else:
-            used, col, okv = lax.fori_loop(jnp.int32(0), jnp.int32(sub),
-                                           step, (used, col, okv))
-
-        # Pivot indices for this sub-panel, off the per-step chain: the
-        # accumulated one-hots are exact in any dtype; the index arithmetic
-        # runs in int32 (bf16 cannot represent lane ids past 256). The
-        # explicit dtype pins the accumulator: under x64 mode jnp.sum
-        # promotes int32 to int64, which Mosaic cannot lower (the r4 oracle
-        # gate caught exactly this when a caller skipped the
-        # enable_x64(False) wrapper the driver uses).
-        ponehot = (psel[:, :] != 0).astype(jnp.int32)       # (sub, m)
-        pivrows_ref[r0:r0 + sub, :] = jnp.sum(
-            ponehot * lane_m, axis=1, keepdims=True, dtype=jnp.int32)
-
-        prec = (lax.Precision.DEFAULT if dt == jnp.bfloat16
-                else lax.Precision.HIGHEST)  # see v1's precision note
-        ct_l = wp[sub:, :] - psel[:, :]                     # (sub, m)
-        if r0 + sub < b:
-            # Deferred composite update of the later rows (identical to
-            # v1's two MXU dots; reads them from the (b, m) buffer, where
-            # they are untouched by the in-scratch sub-panel steps).
-            wl = (stripT_ref[r0 + sub:, :] if s == 0
-                  else w[r0 + sub:, :])
-            g = lax.dot_general(wl, psel[:, :], (((1,), (1,)), ((), ())),
-                                preferred_element_type=jnp.float32,
-                                precision=prec)
-            upd = lax.dot_general(g.astype(dt), ct_l,
-                                  (((1,), (0,)), ((), ())),
-                                  preferred_element_type=jnp.float32,
-                                  precision=prec)
-            new_wl = wl + upd.astype(dt)
-            w[r0 + sub:, :] = new_wl
-            col = new_wl[0:1, :]
-        if emit_ct and r0 > 0:
-            # Finished probe rows get this sub-panel's deferred transform.
-            ct0 = ct_ref[0:r0, :]
-            g0 = lax.dot_general(ct0, psel[:, :], (((1,), (1,)), ((), ())),
-                                 preferred_element_type=jnp.float32,
-                                 precision=prec)
-            upd0 = lax.dot_general(g0.astype(dt), ct_l,
-                                   (((1,), (0,)), ((), ())),
-                                   preferred_element_type=jnp.float32,
-                                   precision=prec)
-            ct_ref[0:r0, :] = ct0 + upd0.astype(dt)
-        if emit_ct:
-            ct_ref[r0:r0 + sub, :] = ct_l
-
-    if emit_ct:
-        fin = jnp.sum(ct_ref[:, :] * jnp.zeros((b, m), dt))
-        ok_ref[:, :] = jnp.broadcast_to(
-            (okv > 0).astype(jnp.int32) * (fin == 0).astype(jnp.int32),
-            (1, 1))
-
-
-def _factor_geometry(m: int, b: int):
-    """(sub, kmask) for the panel kernels.
-
-    sub=16 measured fastest at 4096 (sub=32: 17.3 ms, sub=16: 16.6 ms
-    amortized under v1 in r3; re-confirmed post-barrier/unroll under v2 in
-    r4: sub=16 10.9 ms vs sub=8 12.3 -- halving the per-step working set
-    costs more in doubled deferred-GEMM launches than it saves on the VPU;
-    sub=32 under the v2 unroll blows the 16 MB Mosaic VMEM stack at
-    m=4096, compile-time AOT).
-    sub must DIVIDE b -- the static sub-panel unroll covers exactly
-    (b // sub) * sub steps, so a non-divisor silently skips the last
-    b % sub pivots (caught by review at b = 40, 56, 120, ...).
-    ``MATINV_FACTOR_SUB`` overrides the target for A/B experiments (the
-    divisor walk still applies).
-    """
-    import os
-    env = os.environ.get("MATINV_FACTOR_SUB")
-    sub = min(int(env) if env else 16, b)
-    while b % sub:
-        sub -= 1
-    kmask = 1
-    while kmask < m:
-        kmask = 2 * kmask
-    return sub, kmask - 1
-
-
-def _emit_fused(m: int, b: int, use_pallas: bool, search_bf16: bool) -> bool:
-    """Gate for the fused factor kernel (``_panel_factor``): VMEM holds 2
-    (b, m) fp32 buffers (strip in; C^T out doubling as the working copy)
-    plus probes -- the SAME footprint as the split search kernel, so the
-    fused path reaches wherever the fp32 search does: b*m <= 128*8192
-    (b=128 to m=8192, b=64 to m=16384 -- the capacity point now runs the
-    fused kernel too). The bf16-search regime (m > 16384) keeps the split
-    search + small-inverse path: a bf16 C^T would put ~1e-3 into every
-    value-carrying GEMM, not just the pivot choice. Shared by the
-    single-chip driver and the per-device body of ``parallel/sharded.py``
-    so the threshold cannot drift between them."""
-    return use_pallas and not search_bf16 and b * m <= 128 * 8192
+def _panel_width(n: int, block_size: int) -> int:
+    """Panel width b for order n: the requested width, never wider than the
+    (8-rounded) matrix."""
+    return min(block_size, max(_round_up(n, 8), 8))
 
 
 def _default_group_size(b: int, num_panels: int | None = None) -> int:
     """Panels per composite group when the caller does not choose.
 
     Without ``num_panels`` (callers that size groups before the panel count
-    is known: lu, sharded, phases) the r3 rule stands: composite width
-    gw = group*b ~ 1536 columns independent of b. With it, the round-5
-    rule (v5e, amortized, post the 6e.3 barrier/unroll fix): gw=1024 at
-    every size — 4096^2 12.42 ms vs 13.05 at gw=1536 / 13.84 at 2048
-    (r4); 8192^2 85.6 ms at gw=1024 vs 97.7 at the old gw=2048 default /
-    136.2 at 4096 (r5 same-window); 16384^2 b=64 single-call 603.5 ms at
-    gw=1024 vs 617.1 at the old gw=1536 / 783.6 at 2048 (r5 same-window
-    interleaved — the r4 "1536 at 16384" reading, 741 vs 792, predated
-    the in-place fix, which re-priced groups; gw=1024 is also tail-free
-    there: 256 panels / 16). At m <= 8192 a group that DIVIDES the panel
-    count is preferred: the
-    unrolled tail group after the ``fori_loop`` otherwise costs ~1.2 ms of
-    whole-(m, 2m)-buffer layout-conversion copies at the loop boundary
-    (DESIGN.md 6e; proportionally irrelevant by 16384). Wider groups push
-    work from the windowed outer GEMM into the internal per-panel updates
-    (rank-b on a growing (m, gw+b) window); narrower ones launch more
-    outer GEMMs on short windows. Derived from the GATED b, not the
-    user's block_size: at e.g. n=16384 the VMEM gates shrink b 128 -> 64
-    and the group must widen to keep gw on the sweet spot.
+    is known: lu, sharded) the composite width is gw = group*b ~ 1536
+    columns, independent of b. With it, the target is gw = 1024, and at
+    m <= 8192 a group that DIVIDES the panel count is preferred, so no
+    unrolled tail group follows the full ones. Wider groups push work from
+    the windowed outer GEMM into the internal per-panel updates (rank-b on
+    a growing (m, gw+b) window); narrower ones launch more outer GEMMs on
+    short windows. These widths are starting values, not yet tuned on the
+    card.
     """
     bb = min(b, 128)
     if num_panels is None:
@@ -496,56 +85,13 @@ def _default_group_size(b: int, num_panels: int | None = None) -> int:
     return min(divisors, key=lambda g: abs(g - target), default=target)
 
 
-def _factor_kernel_version(m: int = 0, b: int = 0, dtype=None) -> str:
-    """Which panel-factor kernel to trace: ``v1`` or ``v2`` (the round-4
-    latency-tuned rewrite), overridable via ``MATINV_FACTOR_KERNEL``. Read
-    at trace time so a single process can A/B the two (the jit cache keys
-    on the resulting jaxpr).
-
-    Default: v2 wherever its static unroll fits the VMEM stack (the r4
-    device trace shows v2+unroll launches at 110 us vs v1's 166 at m=4096;
-    whole 4096^2 device time 13.19 vs 14.98 ms); past the unroll gate v1's
-    fori body measured FASTER than v2's (m=8192: 310 vs 338 us/launch --
-    v2's merged (2*sub, m) working set round-trips more VMEM per fori step
-    than v1's split (sub, m) pair), so large m keeps v1. bf16 strips also
-    keep v1: Mosaic 0.9 cannot lower v2's merged packed-bf16 working set
-    ("Not implemented: Sublane broadcast", AOT compile-time, caught by the
-    r4 oracle gate test_hw_kernel_bf16_pivots_valid) -- and the bf16
-    search tier only engages past n=8192 (_select_block_params), where
-    m > 4096 keeps v1 regardless, so the gate costs nothing."""
-    import os
-    env = os.environ.get("MATINV_FACTOR_KERNEL")
-    if env:
-        return env
-    if dtype is not None and jnp.dtype(dtype) == jnp.bfloat16:
-        return "v1"
-    return "v2" if _v2_unroll(m, b) else "v1"
-
-
-def _v2_unroll(m: int, b: int) -> bool:
-    """Whether the v2 kernel statically unrolls its step loop.
-
-    The unrolled code's live temporaries sit on the Mosaic VMEM stack:
-    measured ~11.5 MB of stack at m=8192, which together with the kernel's
-    (b, m) buffers blows the 16 MB scoped-VMEM limit (compile-time OOM,
-    AOT -- no wedge) at m = 8192 and at m = 6144 with b = 128. m <= 4096
-    fits at any gated b (5.75 MB stack + <= 5.6 MB buffers) and is where
-    the 4096^2 headline lives; larger m keeps the fori body.
-    ``MATINV_V2_UNROLL`` (0/1) overrides for experiments."""
-    import os
-    env = os.environ.get("MATINV_V2_UNROLL")
-    if env is not None and env != "":
-        return env != "0"
-    return m <= 4096
-
-
 def _unroll_groups(num_groups: int) -> bool:
     """Whether the blocked driver statically unrolls its group loop.
 
-    Default: unroll up to 16 groups (every default geometry -- 4096^2 has
-    4, 8192^2 has 4, 16384^2 has 10+tail; jit/compile cost grows with the
-    unroll, so pathological group counts keep the fori body).
-    ``MATINV_UNROLL_GROUPS`` (0/1) overrides for A/B experiments."""
+    Default: unroll up to 16 groups (every default geometry up to 16384^2;
+    jit/compile cost grows with the unroll, so pathological group counts
+    keep the fori body). ``MATINV_UNROLL_GROUPS`` (0/1) overrides for A/B
+    experiments."""
     import os
     env = os.environ.get("MATINV_UNROLL_GROUPS")
     if env is not None and env != "":
@@ -553,137 +99,27 @@ def _unroll_groups(num_groups: int) -> bool:
     return num_groups <= 16
 
 
-def _pivot_search(strip: jax.Array, kb: jax.Array, used: jax.Array, *,
-                  m: int, b: int, pivot: bool, interpret: bool):
-    """Run the pivot-search kernel; returns pivrows (b,) int32.
-
-    ``strip`` is (m, b) and gets transposed on the way in (one cheap XLA
-    pass); ``used`` (m, 1) travels as a dense (8, m) broadcast tile
-    (odd-shaped side inputs DMA-crash the TPU runtime). The caller updates
-    the mask itself by scattering the returned pivot rows.
-    """
-    sub, kmask = _factor_geometry(m, b)
-    v2 = _factor_kernel_version(m, b, strip.dtype) == "v2"
-    kern = _panel_factor_kernel2 if v2 else _panel_factor_kernel
-    kernel = functools.partial(kern, m=m, b=b, sub=sub,
-                               kmask=kmask, pivot=pivot, emit_ct=False)
-    if v2:
-        scratch = [pltpu.VMEM((b, m), strip.dtype),
-                   pltpu.VMEM((2 * sub, m), strip.dtype),
-                   pltpu.VMEM((sub, m), strip.dtype)]
-    else:
-        scratch = [pltpu.VMEM((b, m), strip.dtype),
-                   pltpu.VMEM((sub, m), strip.dtype),
-                   pltpu.VMEM((sub, m), strip.dtype)]
-    kb_arr = jnp.reshape(kb.astype(jnp.int32), (1, 1))
-    used_tile = jnp.broadcast_to(
-        jnp.swapaxes(used.astype(strip.dtype), -1, -2), (8, m))
-    pivrows = pl.pallas_call(
-        kernel,
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec(memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec(memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((b, 1), jnp.int32),
-        scratch_shapes=scratch,
-        interpret=interpret,
-    )(kb_arr, jnp.swapaxes(strip, -1, -2), used_tile)
-    return pivrows[:, 0]
-
-
-def _panel_factor(strip: jax.Array, kb: jax.Array, used: jax.Array, *,
-                  m: int, b: int, pivot: bool, interpret: bool):
-    """Fused panel factorization; returns ``(pivrows (b,), ct (b, m), ok)``.
-
-    One kernel launch produces the pivot rows AND the full-panel composite
-    transform C^T, fusing the reference's maxPivot/finalMaxPivot search
-    with its fixRow normalization tier (``matrix_inversion_FP32.cpp:68-164``)
-    so the caller's whole panel application is a single rank-b GEMM
-    (X + C @ X[pivrows]) instead of search + (b, b) inverse + rank-2b GEMM.
-    """
-    sub, kmask = _factor_geometry(m, b)
-    v2 = _factor_kernel_version(m, b, strip.dtype) == "v2"
-    kern = _panel_factor_kernel2 if v2 else _panel_factor_kernel
-    kernel = functools.partial(kern, m=m, b=b, sub=sub,
-                               kmask=kmask, pivot=pivot, emit_ct=True)
-    if v2:
-        scratch = [pltpu.VMEM((2 * sub, m), strip.dtype),
-                   pltpu.VMEM((sub, m), strip.dtype)]
-    else:
-        scratch = [pltpu.VMEM((sub, m), strip.dtype),
-                   pltpu.VMEM((sub, m), strip.dtype)]
-    kb_arr = jnp.reshape(kb.astype(jnp.int32), (1, 1))
-    used_tile = jnp.broadcast_to(
-        jnp.swapaxes(used.astype(strip.dtype), -1, -2), (8, m))
-    pivrows, ct, ok = pl.pallas_call(
-        kernel,
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec(memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pltpu.VMEM),
-        ],
-        out_specs=(pl.BlockSpec(memory_space=pltpu.VMEM),
-                   pl.BlockSpec(memory_space=pltpu.VMEM),
-                   pl.BlockSpec(memory_space=pltpu.VMEM)),
-        out_shape=(jax.ShapeDtypeStruct((b, 1), jnp.int32),
-                   jax.ShapeDtypeStruct((b, m), strip.dtype),
-                   jax.ShapeDtypeStruct((1, 1), jnp.int32)),
-        # No (b, m) working scratch: the ct output ref doubles as the
-        # working buffer (see the kernels), so the kernel holds two (b, m)
-        # buffers plus the merged sub-panel scratch.
-        scratch_shapes=scratch,
-        interpret=interpret,
-    )(kb_arr, jnp.swapaxes(strip, -1, -2), used_tile)
-    return pivrows[:, 0], ct, ok[0, 0] > 0
-
-
-def _small_inv_kernel(a_ref, inv_ref, ok_ref, aug, *, b: int, pivot: bool):
-    """Invert a (b, b) block: GJ on [D | I] in VMEM (shared helper)."""
-    f32 = aug.dtype
-    li = lax.broadcasted_iota(jnp.int32, (b, b), 1)
-    si = lax.broadcasted_iota(jnp.int32, (b, b), 0)
-    aug[:, :b] = a_ref[:, :]
-    aug[:, b:] = jnp.where(li == si, jnp.ones((b, b), f32),
-                           jnp.zeros((b, b), f32))
-    ok = gj_eliminate(aug, b, 2 * b, pivot=pivot)
-    inv = aug[:, b:]
-    probe = jnp.sum(inv * jnp.zeros_like(inv))
-    inv_ref[:, :] = inv
-    ok_ref[:, :] = jnp.broadcast_to(ok * (probe == 0).astype(jnp.int32),
-                                    (1, 1))
-
-
-def _invert_small(dblk: jax.Array, *, pivot: bool, interpret: bool):
-    """Pallas (b, b) inverse; returns (inv, ok_bool)."""
-    b = dblk.shape[-1]
-    kernel = functools.partial(_small_inv_kernel, b=b, pivot=pivot)
-    inv, ok = pl.pallas_call(
-        kernel,
-        in_specs=[pl.BlockSpec(memory_space=pltpu.VMEM)],
-        out_specs=(pl.BlockSpec(memory_space=pltpu.VMEM),
-                   pl.BlockSpec(memory_space=pltpu.VMEM)),
-        out_shape=(jax.ShapeDtypeStruct((b, b), dblk.dtype),
-                   jax.ShapeDtypeStruct((1, 1), jnp.int32)),
-        scratch_shapes=[pltpu.VMEM((b, 2 * b), dblk.dtype)],
-        interpret=interpret,
-    )(dblk)
-    return inv, ok[0, 0] > 0
-
-
 def _panel_pivots_logical(strip: jax.Array, used: jax.Array, kb, *, m: int,
                           b: int, pivot: bool):
-    """Pure-jnp swap-free panel pivot search (any dtype).
+    """Swap-free panel Gauss-Jordan that also builds the panel's transform.
 
-    The jnp twin of ``_pivot_search_kernel``: b Gauss-Jordan steps on the
-    (m, b) strip with a used-row mask instead of row exchanges. Used by the
-    multi-chip path (runs replicated inside shard_map, where Pallas interpret
-    mode is unavailable and dtypes include fp64).
+    b Gauss-Jordan steps on ``[strip | probe]`` with a used-row mask
+    instead of row exchanges: selecting the max-|value| row among unused
+    rows is the same pivot sequence as partial pivoting with exchanges, and
+    ties go to the smallest row index (``jnp.argmax``). The (m, b) probe
+    starts at zero; step r injects the unit vector of its pivot row into
+    probe column r just before eliminating (earlier steps act as identity
+    on a not-yet-pivot row, so late injection is exact), so after the panel
+    the probe holds T E -- the total transform T applied to the pivot-row
+    selector E -- and ``probe - E`` is the panel's composite C. Every value
+    comes from the same sequential rank-1 steps as the strip's own
+    elimination, with no (b, b) block inverse in between.
 
-    Returns ``(pivrows (b,), used, ok)``.
+    Returns ``(pivrows (b,), used, ok, probe (m, b))``.
     """
     rows = lax.broadcasted_iota(jnp.int32, (m, 1), 0)
+    lane = lax.broadcasted_iota(jnp.int32, (1, 2 * b), 1)
+    w0 = jnp.concatenate([strip, jnp.zeros_like(strip)], axis=1)
 
     def step(r, carry):
         w, used, pivrows, ok = carry
@@ -700,96 +136,53 @@ def _panel_pivots_logical(strip: jax.Array, used: jax.Array, kb, *, m: int,
         used = jnp.where(rows == p, jnp.ones_like(used), used)
         pivrows = lax.dynamic_update_slice(pivrows, p[None], (r,))
 
-        row_p = lax.dynamic_slice(w, (p, _i0), (1, b))
+        # Inject e_p into probe column r, then normalize and eliminate.
+        row_p = lax.dynamic_slice(w, (p, _i0), (1, 2 * b))
+        row_p = jnp.where(lane == b + r, row_p + 1, row_p)
         norm = row_p / piv_safe
         factors = jnp.where(rows == p, jnp.zeros_like(col), col)
         w = jnp.where(rows == p, norm, w - factors * norm)
         return w, used, pivrows, ok
 
     pivrows0 = jnp.zeros((b,), jnp.int32)
-    _, used, pivrows, ok = lax.fori_loop(
-        0, b, step, (strip, used, pivrows0, jnp.bool_(True)))
-    return pivrows, used, ok
+    w, used, pivrows, ok = lax.fori_loop(
+        0, b, step, (w0, used, pivrows0, jnp.bool_(True)))
+    return pivrows, used, ok, w[:, b:]
 
 
 # --------------------------------------------------------------------------
-# Shared panel/group factorization (single-chip blocked driver AND the
+# Shared panel/group factorization (single-device blocked driver AND the
 # per-device body of parallel/sharded.py)
 # --------------------------------------------------------------------------
 
 
-def _factor_panel(strip, kb, used, *, m: int, b: int, dtype, pivot: bool,
-                  use_pallas: bool, interpret: bool, search_bf16: bool,
-                  emit: bool, search_f32: bool = False):
-    """Panel pivot rows + composite transform (as C^T, (b, m)).
+def _factor_panel(strip, kb, used, *, m: int, b: int, pivot: bool):
+    """Panel pivot rows + transformed selector T E (as its transpose, (b, m)).
 
     The panel's whole effect on any working-set columns X is
-    ``X + C @ X[pivrows]`` -- one rank-b GEMM that eliminates AND deposits
-    the scaled pivot rows (replacing the round-2 rank-2b [L-P | P] form).
-    On the fused path C^T comes straight from the kernel; otherwise it is
-    assembled from the (b, b) block inverse:
-    C = (E - L_masked) @ D^-1 - E (algebraically identical to the rank-2b
-    update, one (m,b)x(b,b) GEMM). Returns ``(pivrows, ct, ok)``.
+    ``X * (1 - rowmask) + (T E) @ X[pivrows]`` (rowmask: the panel's pivot
+    rows) -- one rank-b GEMM that eliminates AND deposits the scaled pivot
+    rows. It equals ``X + C @ X[pivrows]`` with the composite C = T E - E,
+    but never forms ``T E - E``: at the pivot rows that difference is
+    ``D^-1 - I``, and with pivots larger than one it cancels away most of
+    D^-1's digits. T E comes from the panel's own elimination
+    (``_panel_pivots_logical``). Returns ``(pivrows, te_t, ok)``.
     """
-    if emit:
-        return _panel_factor(strip, kb, used, m=m, b=b, pivot=pivot,
-                             interpret=interpret)
-    if use_pallas:
-        if not pivot:
-            # No-pivot rows are the deterministic kb..kb+b-1; launching
-            # the search kernel (the path's second-largest cost) just to
-            # compute that wastes nearly the pivoted path's full search
-            # time. ok comes solely from _invert_small here, as before.
-            pivrows = kb + lax.broadcasted_iota(jnp.int32, (b,), 0)
-        else:
-            search = strip.astype(jnp.bfloat16) if search_bf16 else strip
-            pivrows = _pivot_search(search, kb, used, m=m, b=b,
-                                    pivot=pivot, interpret=interpret)
-        dblk = jnp.take(strip, pivrows, axis=0)
-        dinv, ok_f = _invert_small(dblk, pivot=pivot, interpret=interpret)
-    elif search_f32 and pivot:
-        # FP64 TPU-shaped panel (round 5, VERDICT r4 #4): the pivot CHOICE
-        # is precision-robust (the same argument as the bf16 search tier,
-        # see module header) -- run the f32 Pallas search kernel on a cast
-        # of the strip, then assemble the panel content algebraically in
-        # full f64 from the (b, b) pivot block. This removes the b-step
-        # per-panel jnp chain over the (m, b) strip in emulated f64 --
-        # the slow half of the old fp64 path (~0.53 s at 4096^2 vs a
-        # ~0.14 s emulated-GEMM floor). A zero/singular pivot block still
-        # trips ok via the (b, b) inverse below, and the final isfinite
-        # gate is unchanged. The Pallas call traces in 32-bit land
-        # (Mosaic cannot legalize x64 index plumbing, CLAUDE.md hazard 4).
-        strip32 = strip.astype(jnp.float32)
-        with jax.enable_x64(False):
-            pivrows = _pivot_search(strip32, kb, used, m=m, b=b,
-                                    pivot=True, interpret=interpret)
-        dblk = jnp.take(strip, pivrows, axis=0)
-        dinv, ok_f = _gauss_jordan_aug(dblk, pivot=pivot)
-    else:
-        pivrows, _, ok_p = _panel_pivots_logical(strip, used, kb, m=m,
-                                                 b=b, pivot=pivot)
-        dblk = jnp.take(strip, pivrows, axis=0)
-        dinv, ok_d = _gauss_jordan_aug(dblk, pivot=pivot)
-        ok_f = jnp.logical_and(ok_p, ok_d)
-    rows = lax.broadcasted_iota(jnp.int32, (m, 1), 0)
-    psel = (rows == pivrows[None, :]).astype(dtype)   # (m, b)
-    rowmask = jnp.sum(psel, axis=1, keepdims=True)
-    cmat = jnp.matmul(psel - strip * (1 - rowmask), dinv,
-                      preferred_element_type=dtype,
-                      precision=jax.lax.Precision.HIGHEST) - psel
-    return pivrows, jnp.swapaxes(cmat, -1, -2), ok_f
+    # The scope names the serial panel chain in device traces.
+    with jax.named_scope("panel_factor"):
+        pivrows, _, ok, probe = _panel_pivots_logical(strip, used, kb, m=m,
+                                                      b=b, pivot=pivot)
+    return pivrows, jnp.swapaxes(probe, -1, -2), ok
 
 
 def _group_factor(og, kb0, used, *, gsize: int, gw: int, m: int, b: int,
-                  dtype, pivot: bool, use_pallas: bool, interpret: bool,
-                  precision, search_bf16: bool, emit: bool,
-                  search_f32: bool = False):
+                  dtype, pivot: bool, precision):
     """Factor ``gsize`` consecutive panels on the [O | G] working set.
 
     ``og`` is (m, 2*gw): the group's outer strip O followed by the
     (initially zero) identity-probe columns G. After the loop,
-    ``og[:, gw:] - E^T`` is the group's composite column transform (see
-    ``_blocked_gj``). Shared verbatim by the single-chip driver and the
+    ``og[:, gw:]`` is the group's transformed selector T E (see
+    ``_blocked_gj``). Shared verbatim by the single-device driver and the
     replicated per-device factorization of ``parallel/sharded.py`` -- the
     mesh generalization of the reference's two-stage argmax
     (``matrix_inversion_FP32.cpp:68-142``).
@@ -802,10 +195,8 @@ def _group_factor(og, kb0, used, *, gsize: int, gw: int, m: int, b: int,
     for i in range(gsize):  # static unroll; all slices static
         ib = i * b
         strip = og[:, ib:ib + b]
-        pivrows, ct, ok_f = _factor_panel(
-            strip, kb0 + ib, used, m=m, b=b, dtype=dtype, pivot=pivot,
-            use_pallas=use_pallas, interpret=interpret,
-            search_bf16=search_bf16, emit=emit, search_f32=search_f32)
+        pivrows, te_t, ok_f = _factor_panel(
+            strip, kb0 + ib, used, m=m, b=b, pivot=pivot)
         ok = jnp.logical_and(ok, ok_f)
         pivtot = lax.dynamic_update_slice(pivtot, pivrows, (np.int32(ib),))
 
@@ -820,8 +211,9 @@ def _group_factor(og, kb0, used, *, gsize: int, gw: int, m: int, b: int,
         # finished (frozen, same argument as the outer window) and G
         # probes beyond this panel are still zero, so the live columns
         # are exactly og[:, ib : gw+ib+b] -- a static slice here since
-        # the group loop is unrolled. One rank-b GEMM (ct^T contracted
-        # on its row axis) eliminates AND deposits the scaled rows.
+        # the group loop is unrolled. One rank-b GEMM (te_t contracted on
+        # its row axis) eliminates AND deposits the scaled rows into the
+        # zeroed pivot rows.
         og_win = og[:, ib:gw + ib + b]                    # (m, gw+b)
         # Same gather-then-update hazard as run_group's outer window (see
         # the barrier note there): materialize the pivot rows first so the
@@ -829,8 +221,8 @@ def _group_factor(og, kb0, used, *, gsize: int, gw: int, m: int, b: int,
         block_rows = lax.optimization_barrier(
             jnp.take(og_win, pivrows, axis=0))            # (b, gw+b)
         og = og.at[:, ib:gw + ib + b].set(
-            og_win + lax.dot_general(
-                ct, block_rows, (((0,), (0,)), ((), ())),
+            og_win * (1 - rowmask) + lax.dot_general(
+                te_t, block_rows, (((0,), (0,)), ((), ())),
                 preferred_element_type=dtype, precision=precision))
     return og, pivtot, used, ok
 
@@ -839,46 +231,8 @@ def _group_factor(og, kb0, used, *, gsize: int, gw: int, m: int, b: int,
 # Blocked driver
 # --------------------------------------------------------------------------
 
-def _select_block_params(n: int, block_size: int, dtype,
-                         search_bf16: bool):
-    """Size gating for the Pallas path; returns (b, use_pallas, search_bf16).
 
-    b = 128 tops out the Pallas path: wider panels scale search traffic
-    linearly with no benefit, and b > 128 at some m trips a Mosaic runtime
-    bug (hangs the chip at m=1024, b=256). Beyond that the gates are VMEM
-    budget for the search kernel's (b, m) working set + (b, m) input +
-    (8, m) mask + 2x (16, m) probes: fp32 fits b=128 to m=8192 and b=64 to
-    m=16384; past that the search data drops to bf16 (pivot choice only)
-    and b=32 carries to m=65536, with an explicit warning past that.
-    """
-    b = min(block_size, max(_round_up(n, 8), 8))
-    use_pallas = dtype in (jnp.float32, jnp.bfloat16)
-    if not use_pallas:
-        return b, False, False
-    b = min(b, 128)
-    m = max(_round_up(n, b), b)
-    if m > 8192:
-        # fp32 search data caps b at 64 here; bf16 search data is half the
-        # VMEM, so an explicit search_bf16=True keeps b=128 to m=16384.
-        b = min(b, 128 if search_bf16 else 64)
-        m = max(_round_up(n, b), b)
-    if m > 16384:
-        search_bf16 = True
-        b = min(b, 64)
-        m = max(_round_up(n, b), b)
-    if m > 32768:
-        b = min(b, 32)
-        m = max(_round_up(n, b), b)
-    if m > 65536:
-        import warnings
-        warnings.warn(
-            f"n={n} exceeds the Pallas pivot-search reach (m<=65536); "
-            "falling back to the pure-jnp panel loop", stacklevel=2)
-        use_pallas = False
-    return b, use_pallas, search_bf16
-
-def _blocked_gj(a: jax.Array, *, pivot: bool, b: int, use_pallas: bool,
-                interpret: bool, precision, search_bf16: bool,
+def _blocked_gj(a: jax.Array, *, pivot: bool, b: int, precision,
                 group_size: int = 4):
     n = a.shape[-1]
     m = max(_round_up(n, b), b)
@@ -904,90 +258,76 @@ def _blocked_gj(a: jax.Array, *, pivot: bool, b: int, use_pallas: bool,
     # slots back to standard positions, mirroring the row gather.
     aug = jnp.concatenate([a, jnp.zeros((m, m), dtype=dtype)], axis=-1)
 
-    rows = lax.broadcasted_iota(jnp.int32, (m, 1), 0)
     num_panels = m // b
 
-    # Logical-permutation scheme for every dtype: rows never move during
-    # elimination -- a cross-panel "used" mask excludes prior pivot rows
-    # from the search, the panel's row placement is folded into the
-    # trailing GEMM as extra rank, and a single gather at the very end puts
-    # the inverse rows in order. Panel factorization runs in a Pallas VMEM
-    # kernel for fp32/bf16 and as a jnp loop otherwise (fp64, m > 4096).
+    # Logical-permutation scheme: rows never move during elimination -- a
+    # cross-panel "used" mask excludes prior pivot rows from the search,
+    # the panel's row placement is folded into the trailing GEMM as extra
+    # rank, and a single gather at the very end puts the inverse rows in
+    # order.
     #
     # Two-level grouping: `group` consecutive panels are processed against
-    # a VMEM-sized working set [O | G] where O is the outer strip (the
-    # group's columns) and G a progressively-injected identity probe. After
-    # the group, G - E^T IS the group's composite column transform C
+    # a working set [O | G] where O is the outer strip (the group's
+    # columns) and G a progressively-injected identity probe. After the
+    # group, G - E^T IS the group's composite column transform C
     # (T X = X + C @ X[pivot rows] -- exact: T_j e_p = e_p for any
     # not-yet-pivot row p, so late injection is sound), so the whole matrix
     # is touched ONCE per group (rank-group*b GEMM) instead of once per
-    # panel: 4x fewer full passes at group=4.
+    # panel.
     # group need NOT divide num_panels: a shorter tail group handles the
-    # remainder (shrinking group to a divisor collapsed to group=1 on
-    # prime-ish panel counts -- N=10000 has 157 panels -- and cratered
-    # throughput 4-8x on non-power sizes).
+    # remainder (shrinking group to a divisor collapses to group=1 on
+    # prime-ish panel counts -- N=10000 has 157 panels at b=64).
     group = max(1, min(group_size, num_panels))
     gw = group * b
     num_groups = num_panels // group
     tail = num_panels - num_groups * group
 
-    emit = _emit_fused(m, b, use_pallas, search_bf16)
-    # FP64 f32-search tier (VERDICT r4 #4): the jnp panel route borrows the
-    # f32 Pallas pivot-search kernel wherever its VMEM gates allow (same
-    # b*m reach as _emit_fused). Single-chip only -- the sharded per-device
-    # body keeps the logical search (CPU meshes cannot run interpret-mode
-    # Pallas inside shard_map).
-    search_f32 = (pivot and not use_pallas
-                  and jnp.dtype(dtype) == jnp.float64
-                  and b * m <= 128 * 8192 and b % 8 == 0)
     group_factor = functools.partial(
         _group_factor, m=m, b=b, dtype=dtype, pivot=pivot,
-        use_pallas=use_pallas, interpret=interpret, precision=precision,
-        search_bf16=search_bf16, emit=emit, search_f32=search_f32)
+        precision=precision)
 
     def run_group(kb0, carry, gsize, gw, static_call=True):
         """Factor ``gsize`` consecutive panels starting at column ``kb0``
         and apply their composite transform to the live window."""
         aug, used, pos, ok = carry
         # Static offsets wherever kb0 is a trace-time constant (the
-        # unrolled group loop): a dynamic_slice of the window materializes
-        # a {0,1}-layout buffer that XLA then relayout-copies for the GEMM
-        # (~0.17 ms per group at 4096^2, r5 device trace); a static
-        # lax.slice folds into the consumer.
+        # unrolled group loop): a static lax.slice folds into its consumer,
+        # where a dynamic_slice of the window materializes a buffer that
+        # XLA may then relayout-copy for the GEMM.
         k0 = int(kb0) if static_call else None
         og = jnp.concatenate(
             [lax.slice(aug, (0, k0), (m, k0 + gw)) if static_call
              else lax.dynamic_slice(aug, (_i0, kb0), (m, gw)),
              jnp.zeros((m, gw), dtype)], axis=1)  # [O | G]
-        og, pivtot, used, ok_g = group_factor(og, kb0, used, gsize=gsize,
-                                              gw=gw)
+        og, pivtot, used_new, ok_g = group_factor(og, kb0, used,
+                                                  gsize=gsize, gw=gw)
         ok = jnp.logical_and(ok, ok_g)
         pos = lax.dynamic_update_slice(pos, pivtot, (kb0,))
+        # The group's pivot rows.
+        rowmask = (used_new - used).astype(dtype)             # (m, 1)
+        used = used_new
 
-        # Composite transform: C = G_final - E^T, applied to the live
-        # window [kb0+gw, m+kb0) in one rank-gw GEMM. The group's own left
-        # columns get the finished O; its slots [m+kb0, m+kb0+gw) get G
-        # (whose columns are exactly e_{pivot} + C, i.e. the deposited
-        # transform the classic layout would scatter to columns m+pivtot).
-        etot = (rows == pivtot[None, :]).astype(dtype)       # (m, gw)
-        c = og[:, gw:] - etot
+        # Group transform G = T E, applied to the live window
+        # [kb0+gw, m+kb0) in one rank-gw GEMM as win * (1 - rowmask) +
+        # G @ win[pivtot] (the composite C = G - E, without forming it; see
+        # _factor_panel). The group's own left columns get the finished O;
+        # its slots [m+kb0, m+kb0+gw) get G, the deposited transform the
+        # classic layout would scatter to columns m+pivtot.
+        g = og[:, gw:]
         win = (lax.slice(aug, (0, k0 + gw), (m, k0 + m)) if static_call
                else lax.dynamic_slice(aug, (_i0, kb0 + gw), (m, m - gw)))
         # Materialize the gathered pivot rows BEFORE the update GEMM: the
         # gather reads rows of the same region the fused GEMM+add+update
-        # overwrites, and without the barrier XLA breaks that hazard by
-        # copying the whole aug buffer every group (4 GiB accessed,
-        # 6.25 ms x num_groups at 16384^2 -- r4 device trace). With the
-        # rows in their own buffer the update is elementwise in the
-        # region and buffer assignment can do it in place. The pairing is
-        # load-bearing: barrier under a fori body measured a LOSS (757.6
-        # vs 741.5 ms at 16384^2), so dynamic-kb0 calls skip it.
+        # overwrites, and without the barrier XLA may break that hazard by
+        # copying the whole aug buffer every group. With the rows in their
+        # own buffer the update is elementwise in the region and buffer
+        # assignment can do it in place. The pairing with static offsets is
+        # deliberate: dynamic-kb0 calls (the fori body) skip the barrier.
         blockw = jnp.take(win, pivtot, axis=0)
         if static_call:
             blockw = lax.optimization_barrier(blockw)
-        win = win + jnp.matmul(c, blockw,
-                               preferred_element_type=dtype,
-                               precision=precision)
+        win = win * (1 - rowmask) + jnp.matmul(
+            g, blockw, preferred_element_type=dtype, precision=precision)
         aug = lax.dynamic_update_slice(aug, win, (_i0, kb0 + gw))
         aug = lax.dynamic_update_slice(aug, og[:, :gw], (_i0, kb0))
         aug = lax.dynamic_update_slice(aug, og[:, gw:],
@@ -1002,22 +342,17 @@ def _blocked_gj(a: jax.Array, *, pivot: bool, b: int, use_pallas: bool,
     pos0 = lax.broadcasted_iota(jnp.int32, (m,), 0)
     carry = (aug, used0, pos0, jnp.bool_(True))
     if _unroll_groups(num_groups):
-        # Static unroll of the group loop. The r4 device trace of the
-        # 16384^2 path shows XLA's while-loop buffer assignment copying
-        # the FULL (m, 2m) aug carry once per iteration (4 GiB accessed,
-        # 6.25 ms x10 = 62.5 ms/call) plus a ~1 GiB win copy -- straight-
-        # line code lets the updates alias in place and also removes the
-        # fori_loop <-> tail layout boundary of DESIGN.md 6e. Production
-        # sizes have <= 11 groups, so code size stays bounded (the gate
-        # keeps huge group counts on the fori body).
+        # Static unroll of the group loop: straight-line code lets the
+        # window updates alias in place, where a while-loop carry may be
+        # copied whole once per iteration.
         for kk in range(num_groups):
             carry = run_group(np.int32(kk * gw), carry, group, gw)
     else:
         carry = lax.fori_loop(0, num_groups, group_step, carry)
     if tail:
-        # np.int32 (NOT jnp): under an outer lax.map/vmap trace a jnp
-        # constant is lifted to a tracer, breaking run_group's static-offset
-        # path (int(kb0) at trace time).
+        # np.int32 (NOT jnp): under an outer vmap trace a jnp constant is
+        # lifted to a tracer, breaking run_group's static-offset path
+        # (int(kb0) at trace time).
         carry = run_group(np.int32(num_groups * group * b), carry,
                           tail, tail * b)
     aug, _, pos, ok = carry
@@ -1034,35 +369,20 @@ def _blocked_gj(a: jax.Array, *, pivot: bool, b: int, use_pallas: bool,
 
 
 @functools.partial(jax.jit,
-                   static_argnames=("pivot", "block_size", "use_pallas",
-                                    "interpret", "precision", "search_bf16",
+                   static_argnames=("pivot", "block_size", "precision",
                                     "group_size", "refine"))
 def _blocked_inverse_jit(a: jax.Array, *, pivot: bool, block_size: int,
-                         use_pallas: bool, interpret: bool, precision: str,
-                         search_bf16: bool, group_size: int = 4,
+                         precision: str, group_size: int = 4,
                          refine: int = 1):
     fn = functools.partial(_blocked_gj, pivot=pivot, b=block_size,
-                           use_pallas=use_pallas, interpret=interpret,
                            precision=_PRECISIONS[precision],
-                           search_bf16=search_bf16, group_size=group_size)
-    if a.ndim > 2 and use_pallas and not interpret:
-        # jax.vmap of the Pallas factor kernels HANGS on the real v5e
-        # (canaried 2026-08-17 via the sharded path; DESIGN.md section 5) --
-        # on hardware, loop the batch through lax.map instead: a scan whose
-        # body is the UNVMAPPED program the single-matrix path validates.
-        # CPU interpret mode keeps vmap (no Mosaic lowering; faster traces);
-        # tests pin map-vs-vmap parity bit-for-bit.
-        flat = a.reshape((-1,) + a.shape[-2:])
-        inv, ok = lax.map(fn, flat)
-        inv = inv.reshape(a.shape)
-        ok = ok.reshape(a.shape[:-2])
-    else:
-        for _ in range(a.ndim - 2):
-            fn = jax.vmap(fn)
-        inv, ok = fn(a)
+                           group_size=group_size)
+    for _ in range(a.ndim - 2):
+        fn = jax.vmap(fn)
+    inv, ok = fn(a)
     if refine > 0:
-        # Newton-Schulz polish: ~12% extra time at 4096 for ~250x residual
-        # (1.8e-5 -> 7e-8), paying back the grouped-update accuracy trade.
+        # Newton-Schulz polish, paying back the grouped-update accuracy
+        # trade.
         from gpu_matrix_inversion_tpu.ops.refine import newton_schulz_refine
         inv = newton_schulz_refine(a, inv, iters=refine)
         ok = jnp.logical_and(ok, jnp.all(jnp.isfinite(inv), axis=(-2, -1)))
@@ -1070,25 +390,20 @@ def _blocked_inverse_jit(a: jax.Array, *, pivot: bool, block_size: int,
 
 
 def effective_gemm_flops(n: int, *, block_size: int = DEFAULT_BLOCK_SIZE,
-                         search_bf16: bool = False,
-                         group_size: int | None = None,
-                         dtype=jnp.float32) -> int:
+                         group_size: int | None = None) -> int:
     """Flops the windowed blocked algorithm ACTUALLY schedules for one
-    inversion (VERDICT r2 weak #6 / next #6).
+    inversion.
 
     The reference's 4*N^3 model (``matrix_inversion_FP64.cpp:753-755``)
     counts the classic full-width [A | I] elimination; the windowed
     pivot-order slot layout deliberately touches about HALF those columns
     (see ``_blocked_gj``), so a "TFLOP/s" on the 4N^3 model is an
-    *algorithmic* rate (Strassen-style accounting) that can legitimately
-    exceed the hardware matmul peak. This helper counts the MXU GEMMs the
-    path really issues -- outer composite, internal panel updates, and the
-    in-kernel deferred dots -- so utilization can be reported honestly
-    alongside the reference-model rate (bench.py's
-    ``blocked_*_gflops_effective`` / ``*_mfu`` fields).
+    *algorithmic* rate that can legitimately exceed the hardware matmul
+    peak. This helper counts the GEMMs the path really issues -- outer
+    composite and internal panel updates -- so utilization can be reported
+    honestly.
     """
-    b, _, search_bf16 = _select_block_params(n, block_size, dtype,
-                                             search_bf16)
+    b = _panel_width(n, block_size)
     m = max(_round_up(n, b), b)
     num_panels = m // b
     if group_size is None:
@@ -1096,30 +411,17 @@ def effective_gemm_flops(n: int, *, block_size: int = DEFAULT_BLOCK_SIZE,
     group = max(1, min(group_size, num_panels))
     num_groups = num_panels // group
     tail = num_panels - num_groups * group
-    sub, _ = _factor_geometry(m, b)
-    # Past the fused kernel's gate, the split path assembles C^T from the
-    # (b, b) block inverse with one extra (m, b) @ (b, b) GEMM per panel
-    # (_factor_panel's cmat); the panel application itself is the same
-    # rank-b dot_general on both paths.
-    emit = _emit_fused(m, b, True, search_bf16)
     fl = 0
     for gsize in [group] * num_groups + ([tail] if tail else []):
         gw = gsize * b
         fl += 2 * m * gw * (m - gw)        # outer composite rank-gw GEMM
         fl += gsize * 2 * m * b * (gw + b)  # internal rank-b panel updates
-        # In-kernel deferred dots: per sub-panel two (rows x sub x m)
-        # contractions over ~b rows total (later strip rows + finished
-        # probe rows), (b/sub) sub-panels per panel.
-        fl += gsize * (b // sub) * 2 * (2 * b * sub * m)
-        if not emit:
-            fl += gsize * 2 * m * b * b     # split-path cmat assembly
     return fl
 
 
 def blocked_inverse(a: jax.Array, *, pivot: bool = True,
                     block_size: int = DEFAULT_BLOCK_SIZE,
                     precision: str = "highest",
-                    search_bf16: bool = False,
                     group_size: int | None = None,
                     refine: int = 1):
     """Blocked Gauss-Jordan inverse; ``(..., n, n) -> (inverse, ok)``.
@@ -1127,84 +429,38 @@ def blocked_inverse(a: jax.Array, *, pivot: bool = True,
     The large-N performance path mirroring the reference's pivoted
     Gauss-Jordan (``matrix_inversion_FP32.cpp:12``): its per-iteration
     rank-1 ``fixColumnKernel`` trailing update (FP32.cpp:17-63) is
-    regrouped into rank-``group*b`` MXU GEMMs, and the two-stage
+    regrouped into rank-``group*b`` GEMMs, and the two-stage
     maxPivot/finalMaxPivot argmax (FP32.cpp:68-142) generalizes to the
     swap-free panel pivot search. ``pivot=False`` mirrors
     ``matrix_inversion_no_pivots.cpp:10``.
 
-    FP32/BF16 panels factor inside Pallas VMEM kernels; FP64 (and other
-    dtypes Mosaic cannot serve) falls back to the pure-jnp panel loop.
-
     Args:
-      precision: MXU precision for the rank-b trailing updates -- one of
-        ``"default"`` (bf16 passes), ``"high"`` (bf16x3), ``"highest"``
-        (full fp32, ~2x slower than high).
-      search_bf16: run the pivot *search* in bfloat16 (only the pivot
-        choice depends on it, all arithmetic stays fp32). Off by default:
-        with the sub-blocked kernel the fp32 search is both faster
-        (no per-step bf16<->f32 conversions) and a more exact partial-
-        pivoting oracle.
+      precision: matmul precision for the rank-b trailing updates -- one of
+        ``"default"``, ``"high"``, ``"highest"`` (full fp32; on a GPU the
+        lower tiers may run fp32 products in TF32).
       group_size: panels per composite trailing update. Larger = fewer
-        full-matrix passes (16384^2 goes 11.2 -> 14.3 TFLOP/s from group 4
-        to 16) but a somewhat larger raw residual, which the default Newton
-        polish recovers. Default: composite rank ~1536 (12 panels at b=128,
-        24 at b=64, the measured sweet spot — ``_default_group_size``); set
-        1 for per-panel updates.
-      refine: Newton-Schulz polish steps applied to the result (default 1:
-        +12% time at 4096 for residual 7e-8 instead of 1.8e-5; 0 disables).
+        full-matrix passes but a somewhat larger raw residual, which the
+        default Newton polish recovers. Default: ``_default_group_size``;
+        set 1 for per-panel updates.
+      refine: Newton-Schulz polish steps applied to the result (default 1;
+        0 disables).
     """
     a = jnp.asarray(a)
     if a.ndim < 2 or a.shape[-1] != a.shape[-2]:
         raise ValueError(f"expected (..., n, n) square matrix, got {a.shape}")
     if a.dtype == jnp.bfloat16:
         # bf16 is an I/O format: compute in fp32 (bf16 GJ arithmetic is
-        # numerically useless past tiny n AND bf16 vector ops miscompile in
-        # parts of this Mosaic toolchain), return bf16.
+        # numerically useless past tiny n), return bf16.
         inv, ok = blocked_inverse(a.astype(jnp.float32), pivot=pivot,
                                   block_size=block_size, precision=precision,
-                                  search_bf16=search_bf16,
                                   group_size=group_size, refine=refine)
         return inv.astype(jnp.bfloat16), ok
     if precision not in _PRECISIONS:
         raise ValueError(f"precision must be one of {set(_PRECISIONS)}")
     n = a.shape[-1]
-    b, use_pallas, search_bf16 = _select_block_params(
-        n, block_size, a.dtype, search_bf16)
+    b = _panel_width(n, block_size)
     if group_size is None:
         group_size = _default_group_size(b, max(_round_up(n, b), b) // b)
-    if a.ndim > 2 and use_pallas and not search_bf16:
-        # Opt-in (MATINV_LOCKSTEP=1) lockstep route: K matrices advance
-        # through one panel-factor chain per panel instead of K chains
-        # (ops/lockstep.py). Measured slower-or-equal than the default
-        # per-matrix lax.map on the v5e -- kept as the recorded experiment
-        # for VERDICT r3 #5; _lockstep_k returns 0 unless opted in.
-        from gpu_matrix_inversion_tpu.ops.lockstep import (
-            _lockstep_inverse_jit, _lockstep_k)
-        flat = a.reshape((-1,) + a.shape[-2:])
-        k = _lockstep_k(flat.shape[0], n, b, a.dtype)
-        if k:
-            interpret = not tpu_available()
-            with jax.enable_x64(False):
-                inv, ok = _lockstep_inverse_jit(
-                    flat, pivot=pivot, b=b, k=k, interpret=interpret,
-                    precision=precision, group_size=group_size,
-                    refine=refine)
-            return inv.reshape(a.shape), ok.reshape(a.shape[:-2])
-    if use_pallas:
-        interpret = not tpu_available()
-        # Trace/compile in 32-bit land: Mosaic cannot legalize the i64 index
-        # plumbing x64 mode threads through pallas calls.
-        with jax.enable_x64(False):
-            return _blocked_inverse_jit(a, pivot=pivot, block_size=b,
-                                        use_pallas=True, interpret=interpret,
-                                        precision=precision,
-                                        search_bf16=search_bf16,
-                                        group_size=group_size, refine=refine)
-    # interpret matters even on the jnp route now: the fp64 f32-search tier
-    # (see _blocked_gj) runs the Pallas pivot-search kernel, which needs
-    # interpret mode off-TPU.
     return _blocked_inverse_jit(a, pivot=pivot, block_size=b,
-                                use_pallas=False,
-                                interpret=not tpu_available(),
-                                precision=precision, search_bf16=False,
-                                group_size=group_size, refine=refine)
+                                precision=precision, group_size=group_size,
+                                refine=refine)

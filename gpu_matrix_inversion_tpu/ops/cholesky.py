@@ -1,19 +1,19 @@
 """Cholesky factorization (potrf), SPD solves (potrs) and inversion (potri).
 
 The reference ships only general-matrix Gauss-Jordan and its README concedes
-that LAPACK-style factorizations win (``/root/reference/README.md:62``).
+that LAPACK-style factorizations win (reference ``README.md:62``).
 For symmetric positive-definite systems the LAPACK route is potrf/potri at
 half of getrf/getri's MACs -- and, unlike LU or pivoted Gauss-Jordan, it has
 NO pivot search at all, so the serial per-step dependency chain that floors
-the general paths at 4096^2 (DESIGN.md section 6b) vanishes: the whole
-factorization is (b, b) diagonal Cholesky blocks plus MXU panel solves and
+the general paths at 4096^2 (DESIGN.md section 3) vanishes: the whole
+factorization is (b, b) diagonal Cholesky blocks plus panel solves and
 rank-b trailing GEMMs.
 
-TPU shape notes: the panel loop is a static Python loop over shrinking
+Shape notes: the panel loop is a static Python loop over shrinking
 ``lax.slice`` windows (static shapes per panel, like ``_trtri_blocked_2d``),
-every value-carrying GEMM runs at ``Precision.HIGHEST`` (CLAUDE.md hazard
-list item 5), and the (b, b) diagonal factorization uses XLA's own
-``lax.linalg.cholesky`` expansion -- no Pallas, so no Mosaic constraints.
+every value-carrying GEMM runs at ``Precision.HIGHEST`` (a default f32
+product may run in reduced precision), and the (b, b) diagonal
+factorization uses XLA's own ``lax.linalg.cholesky``.
 """
 
 from __future__ import annotations
@@ -26,17 +26,11 @@ import jax
 import jax.numpy as jnp
 from jax import lax
 
-# potri's product schedule. The 2-D double-triangular tiling
-# (ops/lu._getri_product(left_triangular=True), ~n^3/3 MACs) is 0.4-0.8 ms
-# faster at 4096^2 than the column schedule (~n^3/2 MACs) -- but its small
-# tiles run at ~75% of the MXU's rate where the column chunks run at ~96%,
-# so the BASELINE roofline gate (effective-MFU >= 0.60 vs the live peak,
-# BASELINE.md; graded as cholesky_potri_4096_mfu) turns window-fragile:
-# measured same-window 0.526-0.574 with the tiling vs 0.60-0.67 with the
-# column schedule (v5e, 2026-08-21 probe). potri therefore keeps the
-# column schedule by default -- the gate grades utilization, not
-# wall-clock -- and the tiling stays one env var away for callers who want
-# raw latency. getri (no utilization gate) uses the tiling by default.
+# potri's product schedule: the column schedule (~n^3/2 MACs, few large
+# GEMMs) by default, or the 2-D double-triangular tiling
+# (ops/lu._getri_product(left_triangular=True), ~n^3/3 MACs in smaller
+# tiles) with MATINV_POTRI_PRODUCT=2d. getri uses the tiling. Which one is
+# faster on the card is not yet measured.
 _POTRI_PRODUCT_2D = os.environ.get("MATINV_POTRI_PRODUCT", "cols") == "2d"
 
 
@@ -156,7 +150,7 @@ def cholesky_solve(l: jax.Array, b: jax.Array) -> Tuple[jax.Array, jax.Array]:
     :func:`cholesky_factor`. ``b`` may be ``(..., n, k)`` or ``(..., n)``.
     Returns ``(x, ok)``. Solve tier the reference never built -- it only
     ever forms explicit inverses and concedes the factorization route wins
-    (``/root/reference/README.md:62``)."""
+    (reference ``README.md:62``)."""
     vec = (b.ndim == l.ndim - 1)
     if vec:
         b = b[..., None]

@@ -1,35 +1,27 @@
-"""Fused Pallas TPU kernel: whole-matrix Gauss-Jordan in VMEM.
+"""Fused Pallas kernel (Triton route): whole-matrix Gauss-Jordan per program.
 
-This is the TPU answer to the reference's dominant overhead: the OpenCL host
-loop enqueues 5 kernels and pays 3 ``commandQueue.finish()`` host syncs per
-iteration, N iterations per inversion (``FP32_bench.cpp:342-405``; SURVEY.md
-section 3.1 calls this out as the root cause of losing to LAPACK). Here the
-whole augmented ``[A | I]`` system lives in an (m, 2m) VMEM scratch buffer
-and the entire r-loop runs inside ONE Pallas kernel: zero kernel launches,
-zero host syncs, zero HBM round-trips between iterations.
+The reference's dominant overhead is its host loop: the OpenCL code
+enqueues 5 kernels and pays 3 ``commandQueue.finish()`` host syncs per
+iteration, N iterations per inversion (``FP32_bench.cpp:342-405``;
+SURVEY.md section 3.1). Here one Triton program holds a whole padded
+``[A | I]`` system as block values in registers and runs every pivot step
+inside ONE kernel: no launches, no host syncs and no device-memory round
+trips between steps. Plain XLA, by contrast, runs each of the m dependent
+steps as a full pass over the whole batch in device memory.
 
-Layout note (measured, v5e): an IN-PLACE (m, m) variant -- each step
-depositing its transform column into the left column it just eliminated,
-halving VMEM and per-step element count -- was built and benchmarked at
-20.7-21.5k inversions/s on the 4096x128^2 batch versus 24.8k for this
-augmented layout, with a worse residual when the deposit is folded into the
-elimination pass (catastrophic cancellation: the slot value col/piv emerges
-from subtracting quantities ~col). The kernel is latency-bound at m = 128:
-per-step cost is the number of dependent vector ops, not the elements they
-touch, and the in-place form needs an extra full-matrix select (or a
-cancellation-prone fold) per step. The augmented layout wins on hardware.
+Design:
 
-Data-dependent pivoting is expressed TPU-style with zero divergent branches
-and zero row movement: the pivot column is carried between steps, the pivot
-choice is ONE packed-key max reduction over unused rows, elimination+deposit
-is one fused pass, and the caller restores row order with a single gather
-(contrast the reference's workgroup tree reduction + serial final scan,
-FP32.cpp:68-142, whose ``__local float2 vector[1000]`` caps N at 256,000;
-this design has no such cap below VMEM capacity).
-
-Batching: the kernel is gridded over the batch dimension, so ``B`` matrices
-invert as ``B`` independent grid programs (the vmapped-fused path of
-BASELINE.md configs[2]).
+- one program per system, on a grid over the batch;
+- the system is carried as two (m, m) block values (the A half and the
+  inverse half) through ``lax.fori_loop`` -- Triton has no scratch space;
+- n is padded to the next power of two (Triton blocks are powers of two)
+  as ``blockdiag(A, I)``, whose inverse is ``blockdiag(inv(A), I)``;
+- pivoting is swap-free: a used-row mask replaces row exchanges (picking
+  the max-|value| row among unused rows is the same pivot sequence as
+  partial pivoting with exchanges), the pivot is one int32 argmax, and the
+  caller restores row order with one gather by the emitted positions
+  (contrast the reference's workgroup tree reduction + serial final scan,
+  FP32.cpp:68-142).
 """
 
 from __future__ import annotations
@@ -40,304 +32,167 @@ import jax
 import jax.numpy as jnp
 from jax import lax
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-# Largest padded N whose (m, 2m) fp32 augmented system + in/out blocks fit
-# in ~16 MB scoped VMEM.
-FUSED_MAX_N = 640
+from gpu_matrix_inversion_tpu.utils.platform import (compiled_kernels,
+                                                     platform_of)
+
+# Largest n the kernel serves. One program carries 2 * m^2 fp32 values, 128 KB
+# at m = 128. On an H100 (batch 1024, fp32) the kernel still compiles at
+# m = 256, but takes 208-291 ms per batch there against 56 ms for the vmapped
+# blocked path, so larger orders go to that path.
+FUSED_MAX_N = 128
+
+# Smallest padded order: keeps every block at least one warp wide.
+_MIN_M = 16
 
 
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
-def _is_tpu_device(d) -> bool:
-    kind = (getattr(d, "device_kind", "") or "").lower()
-    plat = (getattr(d, "platform", "") or "").lower()
-    return "tpu" in kind or "tpu" in plat
+def _padded_order(n: int) -> int:
+    return max(pl.next_power_of_2(n), _MIN_M)
 
 
-def tpu_available() -> bool:
-    """True when computations will land on a TPU by default.
-
-    Respects ``jax.config.jax_default_device`` (tests pin CPU even on hosts
-    where a TPU platform outranks it)."""
-    default = getattr(jax.config, "jax_default_device", None)
-    if default is not None:
-        return _is_tpu_device(default)
-    try:
-        return any(_is_tpu_device(d) for d in jax.devices())
-    except Exception:
-        return False
+def _num_warps(m: int) -> int:
+    """Warps per program, from a sweep on an H100 at a batch of 4096: m=128
+    is fastest at 8 warps (4, 16 and 32 are slower), m=64 at 2 and m=32 at
+    1."""
+    if m >= 128:
+        return 8
+    return 2 if m >= 64 else 1
 
 
-def gj_eliminate(aug, rows_n: int, cols_n: int, *, pivot: bool):
-    """In-kernel Gauss-Jordan elimination loop over a VMEM ref.
+def _gj_kernel(a_ref, inv_ref, pos_ref, ok_ref, *, m: int, pivot: bool):
+    """Kernel body: swap-free Gauss-Jordan on one (m, m) system.
 
-    ``aug`` is a (rows_n, cols_n) ref; the loop runs ``rows_n`` pivot steps.
-    Returns an int32 ok flag (0 if a zero pivot was hit).
-
-    Fully vectorized: pivot column/row extraction are masked reductions, the
-    row swap is a three-way ``where`` select -- no data-dependent indexing at
-    all, which is exactly what the VPU wants (and what Mosaic can lower).
-    Shared by the fused whole-matrix kernel and the blocked path's
-    panel-factorization kernel.
+    Row ``p`` of the inverse half ends up holding inverse row ``r`` where
+    ``pos[r] = p``; ``ok`` is 0 on an exactly zero pivot or a non-finite
+    result (the reference's post-hoc identity check, FP32.cpp:814-835).
+    Inputs of any float dtype compute in fp32 (bf16 is an I/O format).
     """
-    lane = lax.broadcasted_iota(jnp.int32, (rows_n, cols_n), 1)
-    sub = lax.broadcasted_iota(jnp.int32, (rows_n, cols_n), 0)
-    rows = lax.broadcasted_iota(jnp.int32, (rows_n, 1), 0)
-
-    def step(r, ok):
-        full = aug[:, :]
-        # Pivot column r: masked lane reduction (no dynamic lane slicing).
-        col = jnp.sum(jnp.where(lane == r, full, jnp.zeros_like(full)),
-                      axis=1, keepdims=True)  # (rows_n, 1)
-
-        if pivot:
-            # maxPivot/finalMaxPivot (FP32.cpp:68-142) as one sublane argmax.
-            # Manual int32 argmax (max + first matching row): jnp.argmax
-            # yields int64 under x64, which Mosaic cannot convert.
-            cand = jnp.where(rows >= r, jnp.abs(col), jnp.full_like(col, -1))
-            mval = jnp.max(cand)
-            p = jnp.min(jnp.where(cand == mval, rows,
-                                  jnp.full_like(rows, rows_n)))
-        else:
-            p = r
-        piv = jnp.sum(jnp.where(rows == p, col, jnp.zeros_like(col)))
-        ok = ok * (piv != 0).astype(jnp.int32)
-        piv_safe = jnp.where(piv == 0, jnp.ones_like(piv), piv)
-
-        if pivot:
-            # pivotElementsKernel (FP32.cpp:171-192): swap rows r and p via
-            # masked row reductions + a three-way select.
-            row_r = jnp.sum(jnp.where(sub == r, full, jnp.zeros_like(full)),
-                            axis=0, keepdims=True)  # (1, cols_n)
-            row_p = jnp.sum(jnp.where(sub == p, full, jnp.zeros_like(full)),
-                            axis=0, keepdims=True)
-            full = jnp.where(sub == r, row_p, jnp.where(sub == p, row_r, full))
-            col_at_r = jnp.sum(jnp.where(rows == r, col, jnp.zeros_like(col)))
-            col = jnp.where(rows == r, piv,
-                            jnp.where(rows == p, col_at_r, col))
-            pivot_row = row_p
-        else:
-            pivot_row = jnp.sum(jnp.where(sub == r, full, jnp.zeros_like(full)),
-                                axis=0, keepdims=True)
-
-        # fixRowKernel (FP32.cpp:150-164): normalize the pivot row.
-        norm_row = pivot_row / piv_safe
-
-        # fixColumnKernel (FP32.cpp:17-63): rank-1 eliminate all other rows,
-        # then deposit the normalized pivot row.
-        factors = jnp.where(rows == r, jnp.zeros_like(col), col)
-        full = full - factors * norm_row
-        aug[:, :] = jnp.where(sub == r, norm_row, full)
-        return ok
-
-    # int32 loop bounds keep the induction variable int32 even under x64.
-    return lax.fori_loop(jnp.int32(0), jnp.int32(rows_n), step, jnp.int32(1))
-
-
-def _gj_kernel(a_ref, inv_ref, pos_ref, ok_ref, aug, *, m: int, pivot: bool,
-               pack: int):
-    """Kernel body: pivoted Gauss-Jordan on ``pack`` (m, 2m) systems.
-
-    Swap-free: rows never move (a used-row mask replaces the reference's
-    pivotElementsKernel -- selecting the max-|value| row among unused rows
-    is the same pivot sequence as partial pivoting with exchanges); the
-    caller reorders the inverse rows once with the emitted position vector.
-
-    ``pack`` independent systems are processed per program with their bodies
-    interleaved by the compiler: the path is bound by each step's reduction
-    -> scalar -> broadcast dependency chain, so multiple chains in flight
-    hide the latency (pack=8 measures +37% throughput over pack=1 on v5e).
-    """
-    f32 = aug.dtype  # always float32: bf16 inputs compute in an fp32
-    # scratch (bf16 VECTOR arithmetic in this kernel miscompiles on the
-    # Mosaic toolchain; casting at the load/store boundary sidesteps it
-    # and is more accurate anyway -- bf16 is an I/O format here).
-    # makeAugmentedMatrix (reference FP32.cpp:198-215): [A | I] in VMEM.
-    # NOTE: build the eye from fresh (m, m) iotas -- lane-slicing a larger
-    # broadcasted_iota value crashes the Mosaic compiler on this toolchain.
-    li = lax.broadcasted_iota(jnp.int32, (m, m), 1)
-    si = lax.broadcasted_iota(jnp.int32, (m, m), 0)
-    eye = jnp.where(li == si, jnp.ones((m, m), f32), jnp.zeros((m, m), f32))
-    lane = lax.broadcasted_iota(jnp.int32, (m, 2 * m), 1)
-    sub = lax.broadcasted_iota(jnp.int32, (m, 2 * m), 0)
-    rows = lax.broadcasted_iota(jnp.int32, (m, 1), 0)
-    lane_row = lax.broadcasted_iota(jnp.int32, (1, 2 * m), 1)
-    kmask = 1
-    while kmask < m:
-        kmask *= 2
-    kmask -= 1  # next_pow2(m) - 1: the row-index field of the packed key
-
-    for s in range(pack):
-        aug[s, :, :m] = a_ref[s].astype(f32)
-        aug[s, :, m:] = eye
-        pos_ref[s] = rows
-
-    def one(s, r, used, ok, col):
-        """One elimination step of system s (carried pivot column)."""
-        full = aug[s]
-        if pivot:
-            # maxPivot/finalMaxPivot (FP32.cpp:68-142) over UNUSED rows, as
-            # ONE packed-key max reduction: the int32 bit pattern of a
-            # nonnegative f32 is value-monotonic, so pack |col| (the top
-            # 32 - log2(kmask+1) bits) with (kmask - row) for first-match
-            # tie-breaking. kmask is derived from m like the blocked twin
-            # (blocked.py _pivot_search) -- a hardcoded constant would
-            # silently corrupt pivots if FUSED_MAX_N ever grew past it.
-            bits = lax.bitcast_convert_type(
-                jnp.abs(col).astype(jnp.float32), jnp.int32)
-            key = jnp.where(used > 0, jnp.full_like(rows, -1),
-                            (bits & ~jnp.int32(kmask))
-                            | (jnp.int32(kmask) - rows))
-            p = jnp.int32(kmask) - (jnp.max(key) & jnp.int32(kmask))
-        else:
-            p = r
-        used = jnp.where(rows == p, jnp.ones_like(used), used)
-        pos_ref[s] = jnp.where(rows == r, p, pos_ref[s])
-
-        # fixRowKernel (FP32.cpp:150-164): normalize pivot row p in place;
-        # the pivot value comes from the extracted row (cheap lane reduce).
-        pivot_row = jnp.sum(jnp.where(sub == p, full, jnp.zeros_like(full)),
-                            axis=0, keepdims=True)  # (1, 2m)
-        piv = jnp.sum(jnp.where(lane_row == r, pivot_row,
-                                jnp.zeros_like(pivot_row)))
-        ok = ok * (piv != 0).astype(jnp.int32)
-        piv_safe = jnp.where(piv == 0, jnp.ones_like(piv), piv)
-        norm_row = pivot_row / piv_safe
-
-        # fixColumnKernel (FP32.cpp:17-63): rank-1 eliminate all other rows
-        # and deposit the normalized pivot row, one fused pass -- which also
-        # yields the NEXT pivot column while the updated values are live.
-        factors = jnp.where(rows == p, jnp.zeros_like(col), col)
-        new_full = jnp.where(sub == p, norm_row, full - factors * norm_row)
-        aug[s] = new_full
-        col_next = jnp.sum(jnp.where(lane == r + 1, new_full,
-                                     jnp.zeros_like(new_full)),
-                           axis=1, keepdims=True)
-        return used, ok, col_next
+    f32 = jnp.float32
+    rows = lax.broadcasted_iota(jnp.int32, (m,), 0)
+    rows2 = lax.broadcasted_iota(jnp.int32, (m, m), 0)
+    lanes2 = lax.broadcasted_iota(jnp.int32, (m, m), 1)
+    zero = jnp.zeros((m, m), f32)
+    # makeAugmentedMatrix (reference FP32.cpp:198-215): [A | I].
+    left = a_ref[...].astype(f32)
+    right = jnp.where(rows2 == lanes2, jnp.ones((m, m), f32), zero)
 
     def step(r, carry):
-        return tuple(one(s, r, *carry[s]) for s in range(pack))
+        left, right, used, pos, ok = carry
+        col = jnp.sum(jnp.where(lanes2 == r, left, zero), axis=1)   # (m,)
+        if pivot:
+            # maxPivot/finalMaxPivot (FP32.cpp:68-142) over UNUSED rows as
+            # one argmax (first index on ties, like jnp.argmax).
+            cand = jnp.where(used > 0, jnp.full((m,), -1.0, f32),
+                             jnp.abs(col))
+            p = lax.argmax(cand, 0, jnp.int32)
+        else:
+            p = r
+        sel = rows == p
+        piv = jnp.sum(jnp.where(sel, col, jnp.zeros((m,), f32)))
+        ok = ok * (piv != 0).astype(jnp.int32)
+        piv_safe = jnp.where(piv == 0, jnp.ones((), f32), piv)
+        sel2 = rows2 == p
+        # fixRowKernel (FP32.cpp:150-164): normalize pivot row p in place.
+        row_l = jnp.sum(jnp.where(sel2, left, zero), axis=0) / piv_safe
+        row_r = jnp.sum(jnp.where(sel2, right, zero), axis=0) / piv_safe
+        # fixColumnKernel (FP32.cpp:17-63): rank-1 eliminate all other rows
+        # and deposit the normalized pivot row, one pass per half.
+        f = jnp.where(sel, jnp.zeros((m,), f32), col)[:, None]
+        left = jnp.where(sel2, row_l[None, :], left - f * row_l[None, :])
+        right = jnp.where(sel2, row_r[None, :], right - f * row_r[None, :])
+        used = jnp.where(sel, jnp.ones((m,), f32), used)
+        pos = jnp.where(rows == r, p, pos)
+        return left, right, used, pos, ok
 
-    init = tuple(
-        (jnp.zeros((m, 1), jnp.float32), jnp.int32(1),
-         jnp.sum(jnp.where(lane == 0, aug[s], jnp.zeros((m, 2 * m), f32)),
-                 axis=1, keepdims=True))
-        for s in range(pack))
-    fin = lax.fori_loop(jnp.int32(0), jnp.int32(m), step, init)
-
-    # getInvertedMatrix (FP32.cpp:216-226): right half, still in pivot-row
-    # order (the caller gathers rows by pos to restore natural order).
-    for s in range(pack):
-        inv = aug[s][:, m:]
-        # Finite check without bool reductions (Mosaic-friendly): 0*x sums
-        # to 0 iff every element is finite.
-        probe = jnp.sum(inv * jnp.zeros_like(inv))
-        ok = fin[s][1] * (probe == 0).astype(jnp.int32)
-        inv_ref[s] = inv.astype(inv_ref.dtype)
-        # ok is a per-system (1, 1) VMEM vector store (SMEM outputs must
-        # cover the whole array, capping batch; scalar VMEM stores are
-        # unsupported).
-        ok_ref[s] = jnp.broadcast_to(ok, (1, 1))
-
-
-def _pack_for(m: int) -> int:
-    """Systems per kernel program: as many as VMEM comfortably holds
-    (~32*m^2 bytes each for the augmented scratch + double-buffered I/O;
-    the budget divisor keeps headroom for compiler temporaries).
-
-    ``MATINV_FUSED_PACK`` overrides for tuning sweeps (read at trace time:
-    changing it between same-shape calls in one process will NOT retrace).
-    """
-    import os
-    override = os.environ.get("MATINV_FUSED_PACK")
-    if override:
-        return max(1, int(override))
-    budget = 12 * 1024 * 1024
-    return max(1, min(8, budget // (32 * m * m)))
+    init = (left, right, jnp.zeros((m,), f32), rows, jnp.int32(1))
+    _, right, _, pos, ok = lax.fori_loop(jnp.int32(0), jnp.int32(m), step,
+                                         init)
+    # Finite check: 0*x sums to 0 iff every element is finite.
+    probe = jnp.sum(right * zero)
+    inv_ref[...] = right.astype(inv_ref.dtype)
+    pos_ref[...] = pos
+    ok_ref[...] = ok * (probe == 0).astype(jnp.int32)
 
 
 @functools.partial(jax.jit, static_argnames=("pivot", "interpret"))
-def _fused_batched(a, *, pivot: bool, interpret: bool):
-    b0, n, _ = a.shape
-    m = max(_round_up(n, 128), 128)
-    # Interpret mode (CPU tests) evaluates the unrolled pack bodies serially
-    # -- no latency to hide, just slower traces -- so keep it at 1 there,
-    # unless MATINV_FUSED_PACK explicitly asks for more (lets the CPU suite
-    # exercise the multi-system block indexing the TPU always uses).
-    import os
-    if interpret and not os.environ.get("MATINV_FUSED_PACK"):
-        pack = 1
-    else:
-        pack = _pack_for(m)
-    b = ((b0 + pack - 1) // pack) * pack
-    if m != n or b != b0:
-        # Pad to blockdiag(A, I): inverse is blockdiag(inv(A), I) and padded
-        # rows/cols never win a pivot against a nonsingular A. The batch is
-        # padded with identity matrices up to a multiple of pack.
-        pad = jnp.broadcast_to(jnp.eye(m, dtype=a.dtype), (b, m, m))
-        # The eye's own off-diagonal zeros already blank the top-right
-        # block, so only A needs depositing.
-        a = pad.at[:b0, :n, :n].set(a)
-
-    kernel = functools.partial(_gj_kernel, m=m, pivot=pivot, pack=pack)
+def _fused_batched(a, *, pivot: bool, interpret: bool = False):
+    """(B, n, n) -> (inverse (B, n, n), ok (B,)) with one program per
+    system."""
+    bsz, n, _ = a.shape
+    m = _padded_order(n)
+    if m != n:
+        # Pad to blockdiag(A, I): padded rows are zero in the real columns,
+        # so they never win a pivot against a nonsingular A.
+        pad = jnp.broadcast_to(jnp.eye(m, dtype=a.dtype), (bsz, m, m))
+        a = pad.at[:, :n, :n].set(a)
+    kernel = functools.partial(_gj_kernel, m=m, pivot=pivot)
     inv, pos, ok = pl.pallas_call(
         kernel,
-        grid=(b // pack,),
-        in_specs=[pl.BlockSpec((pack, m, m), lambda i: (i, 0, 0),
-                               memory_space=pltpu.VMEM)],
+        grid=(bsz,),
+        in_specs=[pl.BlockSpec((None, m, m), lambda i: (i, 0, 0))],
         out_specs=(
-            pl.BlockSpec((pack, m, m), lambda i: (i, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((pack, m, 1), lambda i: (i, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((pack, 1, 1), lambda i: (i, 0, 0),
-                         memory_space=pltpu.VMEM),
+            pl.BlockSpec((None, m, m), lambda i: (i, 0, 0)),
+            pl.BlockSpec((None, m), lambda i: (i, 0)),
+            pl.BlockSpec((None,), lambda i: (i,)),
         ),
         out_shape=(
-            jax.ShapeDtypeStruct((b, m, m), a.dtype),
-            jax.ShapeDtypeStruct((b, m, 1), jnp.int32),
-            jax.ShapeDtypeStruct((b, 1, 1), jnp.int32),
+            jax.ShapeDtypeStruct((bsz, m, m), a.dtype),
+            jax.ShapeDtypeStruct((bsz, m), jnp.int32),
+            jax.ShapeDtypeStruct((bsz,), jnp.int32),
         ),
-        scratch_shapes=[pltpu.VMEM((pack, m, 2 * m), jnp.float32)],
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(
+            num_warps=_num_warps(m), num_stages=1),
         interpret=interpret,
+        name="gauss_jordan_fused",
     )(a)
-    # Undo the logical permutation: inverse row g is at physical row pos[g].
-    inv = jnp.take_along_axis(inv, pos, axis=1)
-    return inv[:b0, :n, :n], ok[:b0, 0, 0] > 0
+    # Undo the logical permutation: inverse row r is at physical row pos[r].
+    inv = jnp.take_along_axis(inv, pos[:, :, None], axis=1)
+    return inv[:, :n, :n], ok > 0
 
 
-def fused_inverse(a: jax.Array, *, pivot: bool = True):
-    """Invert ``(..., n, n)`` fp32/bf16 matrices with the fused VMEM kernel.
+def fused_supported(a) -> bool:
+    """Whether the fused kernel serves this dtype and order."""
+    return (a.dtype in (jnp.float32, jnp.bfloat16)
+            and a.shape[-1] <= FUSED_MAX_N)
+
+
+def fused_inverse(a: jax.Array, *, pivot: bool = True,
+                  interpret: bool = False):
+    """Invert ``(..., n, n)`` fp32/bf16 matrices with the fused kernel.
 
     Mirrors the reference's FP32 pivoted Gauss-Jordan entry point
     (``matrix_inversion_FP32.cpp:12``, kernel chain :17-226) with the whole
-    ``[A | I]`` system VMEM-resident and the r-loop inside ONE kernel —
-    versus the reference's 5 kernel launches + 3 host syncs per iteration
-    (``FP32_bench.cpp:342-405``). ``pivot=False`` is the
+    ``[A | I]`` system held by one program and the r-loop inside ONE kernel
+    -- versus the reference's 5 kernel launches + 3 host syncs per
+    iteration (``FP32_bench.cpp:342-405``). ``pivot=False`` is the
     ``matrix_inversion_no_pivots.cpp:10`` variant.
 
-    Returns ``(inverse, ok)``. Raises ``NotImplementedError`` for dtypes or
-    sizes the fused path does not serve (callers fall back to the jnp spec
-    or the blocked path via models/solver.py).
+    The kernel compiles for CUDA devices; ``interpret=True`` runs it in the
+    Pallas interpreter instead (CPU tests). Returns ``(inverse, ok)``.
+    Raises ``NotImplementedError`` for dtypes or sizes the kernel does not
+    serve, and ``RuntimeError`` off CUDA without ``interpret=True``.
     """
+    a = jnp.asarray(a)
     if a.dtype not in (jnp.float32, jnp.bfloat16):
         raise NotImplementedError(
-            f"fused Pallas kernel serves fp32/bf16; got {a.dtype} "
-            "(FP64 routes to the jnp spec / blocked path)")
+            f"fused kernel serves fp32/bf16; got {a.dtype}")
     n = a.shape[-1]
     if n > FUSED_MAX_N:
         raise NotImplementedError(
-            f"n={n} exceeds fused VMEM capacity ({FUSED_MAX_N}); "
+            f"n={n} exceeds the fused kernel's reach ({FUSED_MAX_N}); "
             "use the blocked path")
+    if not interpret and not compiled_kernels(platform_of(a)):
+        raise RuntimeError(
+            "the fused kernel compiles for CUDA devices only; got platform "
+            f"{platform_of(a)!r} (pass interpret=True to run it in the "
+            "Pallas interpreter)")
     batch_shape = a.shape[:-2]
     a3 = a.reshape((-1,) + a.shape[-2:])
-    interpret = not tpu_available()
-    # Trace in 32-bit land even when x64 is globally on: the kernel is pure
-    # fp32/int32 and Mosaic cannot legalize the i64 index plumbing x64 mode
-    # threads through grid index maps.
-    with jax.enable_x64(False):
-        inv, ok = _fused_batched(a3, pivot=pivot, interpret=interpret)
+    inv, ok = _fused_batched(a3, pivot=pivot, interpret=interpret)
     return inv.reshape(a.shape), ok.reshape(batch_shape)

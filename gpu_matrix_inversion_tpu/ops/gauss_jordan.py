@@ -11,7 +11,7 @@ launches five OpenCL kernels from the host
 - ``fixRowKernel``: normalize row r by the pivot            (FP32.cpp:150-164)
 - ``fixColumnKernel``: rank-1 eliminate all other rows      (FP32.cpp:17-63)
 
-On TPU the whole r-loop lives inside one ``jax.lax.fori_loop`` under ``jit``
+Here the whole r-loop lives inside one ``jax.lax.fori_loop`` under ``jit``
 (one compiled program, zero host round-trips -- the reference pays 3 host
 syncs per iteration, SURVEY.md section 3.1), with data-dependent pivoting
 expressed as ``dynamic_slice`` / ``where`` rather than real branches.

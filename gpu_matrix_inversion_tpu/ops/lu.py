@@ -2,13 +2,13 @@
 
 The reference *loses* to NumPy/MATLAB because "they utilize LAPACK's LU
 Decompositions which is more efficient than Gauss Jordan"
-(``/root/reference/README.md:62``). This module is the LAPACK-shaped path the
+(reference ``README.md:62``). This module is the LAPACK-shaped path the
 reference never built: partial-pivoted LU (getrf), triangular solves (getrs),
 explicit inversion (getri), and FP32-factor + iterative-refinement to reach
 FP64-level residuals (BASELINE.md configs[3]).
 
 Spec-level implementation in pure jnp with static shapes (fori_loop +
-dynamic_slice); the blocked/Pallas acceleration reuses the machinery in
+dynamic_slice); the blocked path reuses the machinery in
 ``ops/blocked.py``. Storage convention matches LAPACK: L (unit lower) and U
 packed in one matrix, plus a row-permutation vector (PA = LU).
 """
@@ -23,6 +23,8 @@ import jax.numpy as jnp
 import numpy as np
 from jax import lax
 
+from gpu_matrix_inversion_tpu.ops.blocked import (_default_group_size,
+                                                  _panel_width)
 from gpu_matrix_inversion_tpu.ops.gauss_jordan import _i0
 
 
@@ -158,71 +160,13 @@ def lu_solve_matrix(a: jax.Array, b: jax.Array, *, pivot: bool = True):
 
 
 # --------------------------------------------------------------------------
-# Blocked LU: the performance getrf/getrs (fori panels + rank-b MXU trailing
-# updates; same logical-permutation design as ops/blocked.py). On TPU the
-# panel pivots come from the SAME Pallas search kernel as the blocked
-# Gauss-Jordan path -- partial-pivoted GJ and LU choose identical pivot
-# sequences (the search only ever reads not-yet-pivoted rows, whose values
-# evolve identically under both eliminations) -- and the panel's L/U content
-# is then assembled algebraically from a small (b, b) no-pivot LU kernel
-# plus two triangular solves, replacing the b-step host-level jnp loop that
-# made the factor 45.9 of getri's 54.1 ms at 4096^2 (round 3, v5e).
+# Blocked LU: the performance getrf/getrs (fori panels + rank-b GEMM trailing
+# updates; same logical-permutation design as ops/blocked.py). Partial-
+# pivoted GJ and LU choose identical pivot sequences: the search reads only
+# not-yet-pivoted rows, whose values evolve identically under both
+# eliminations.
 # --------------------------------------------------------------------------
 
-
-def _small_lu_kernel(a_ref, out_ref, ok_ref, *, b: int):
-    """No-pivot LU of a (b, b) block in VMEM, LAPACK-packed (getrf's
-    recursion base; pivot order was already fixed by the search kernel).
-    The out ref doubles as the working buffer."""
-    dt = out_ref.dtype
-    lane = lax.broadcasted_iota(jnp.int32, (b, b), 1)
-    sub = lax.broadcasted_iota(jnp.int32, (b, b), 0)
-    rows = lax.broadcasted_iota(jnp.int32, (b, 1), 0)
-    out_ref[:, :] = a_ref[:, :]
-
-    def step(r, ok):
-        full = out_ref[:, :]
-        col = jnp.sum(jnp.where(lane == r, full, jnp.zeros_like(full)),
-                      axis=1, keepdims=True)           # (b, 1)
-        piv = jnp.sum(jnp.where(rows == r, col, jnp.zeros_like(col)))
-        ok = ok * (piv != 0).astype(jnp.int32)
-        piv_safe = jnp.where(piv == 0, jnp.ones_like(piv), piv)
-        row_r = jnp.sum(jnp.where(sub == r, full, jnp.zeros_like(full)),
-                        axis=0, keepdims=True)         # (1, b)
-        f = jnp.where(rows > r, col / piv_safe, jnp.zeros_like(col))
-        # Eliminate the trailing columns; deposit the multipliers in column
-        # r below the diagonal. The deposit mask is a PRODUCT of 1-D masks
-        # (a broadcast 2D bool `and` trips a Mosaic relayout bug).
-        new_full = full - jnp.where(lane > r, f * row_r,
-                                    jnp.zeros_like(full))
-        colmask = (lane == r).astype(dt) * (sub > r).astype(dt)
-        out_ref[:, :] = new_full * (1 - colmask) + colmask * f
-        return ok
-
-    ok = lax.fori_loop(jnp.int32(0), jnp.int32(b), step, jnp.int32(1))
-    # Finite probe: 0*x sums to 0 iff every element is finite.
-    probe = jnp.sum(out_ref[:, :] * jnp.zeros((b, b), dt))
-    ok_ref[:, :] = jnp.broadcast_to(ok * (probe == 0).astype(jnp.int32),
-                                    (1, 1))
-
-
-def _small_lu(dblk: jax.Array, *, interpret: bool):
-    """Pallas (b, b) no-pivot packed LU; returns ``(packed, ok_bool)``."""
-    import functools as _ft
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-    b = dblk.shape[-1]
-    kernel = _ft.partial(_small_lu_kernel, b=b)
-    packed, ok = pl.pallas_call(
-        kernel,
-        in_specs=[pl.BlockSpec(memory_space=pltpu.VMEM)],
-        out_specs=(pl.BlockSpec(memory_space=pltpu.VMEM),
-                   pl.BlockSpec(memory_space=pltpu.VMEM)),
-        out_shape=(jax.ShapeDtypeStruct((b, b), dblk.dtype),
-                   jax.ShapeDtypeStruct((1, 1), jnp.int32)),
-        interpret=interpret,
-    )(dblk)
-    return packed, ok[0, 0] > 0
 
 def _lu_panel(strip, used, kb, *, m: int, b: int, pivot: bool):
     """Factor an (m, b) panel with no-swap partial pivoting.
@@ -266,8 +210,26 @@ def _lu_panel(strip, used, kb, *, m: int, b: int, pivot: bool):
     return w, pivrows, used, ok
 
 
-def _lu_factor_blocked_2d(a, *, b: int, pivot: bool, use_pallas: bool = False,
-                          interpret: bool = False, search_bf16: bool = False):
+def _panel_multipliers(w, pivrows, used_before, *, m: int, b: int, dtype):
+    """Truncated multiplier matrix and unit-lower L11 of a factored panel.
+
+    ``L[i, r]`` is live iff row i was eliminated at step r (still unpivoted
+    then, and not used before the panel), so the truncation also lets one
+    GEMM write the panel's own pivot rows' U values."""
+    lane_b1 = lax.broadcasted_iota(jnp.int32, (1, b), 1)
+    tri_b = (lax.broadcasted_iota(jnp.int32, (b, b), 0)
+             > lax.broadcasted_iota(jnp.int32, (b, b), 1))
+    order = jnp.full((m,), b, jnp.int32).at[pivrows].set(
+        jnp.arange(b, dtype=jnp.int32))
+    lmask = (order[:, None] > lane_b1).astype(dtype)
+    l_trunc = w * lmask * (1 - used_before.astype(dtype))
+    l11 = jnp.where(tri_b, jnp.take(w, pivrows, axis=0),
+                    jnp.zeros((b, b), dtype)) + jnp.eye(b, dtype=dtype)
+    return l_trunc, l11
+
+
+def _lu_factor_blocked_2d(a, *, b: int, pivot: bool):
+    """Flat blocked getrf: one full-width rank-b trailing GEMM per panel."""
     n = a.shape[-1]
     m = max(((n + b - 1) // b) * b, b)
     dtype = a.dtype
@@ -276,11 +238,7 @@ def _lu_factor_blocked_2d(a, *, b: int, pivot: bool, use_pallas: bool = False,
         apad = lax.dynamic_update_slice(apad, a, (0, 0))
         a = apad
 
-    rows = lax.broadcasted_iota(jnp.int32, (m, 1), 0)
     lane_m = lax.broadcasted_iota(jnp.int32, (1, m), 1)
-    lane_b1 = lax.broadcasted_iota(jnp.int32, (1, b), 1)
-    tri_b = (lax.broadcasted_iota(jnp.int32, (b, b), 0)
-             > lax.broadcasted_iota(jnp.int32, (b, b), 1))
     hp = jax.lax.Precision.HIGHEST
 
     def panel_step(k, carry):
@@ -288,62 +246,11 @@ def _lu_factor_blocked_2d(a, *, b: int, pivot: bool, use_pallas: bool = False,
         kb = k.astype(jnp.int32) * b
         used_before = used
         strip = lax.dynamic_slice(lu, (_i0, kb), (m, b))
-
-        if use_pallas:
-            # Pivot rows from the shared Pallas search kernel
-            # (ops/blocked._pivot_search): GJ and LU partial pivoting pick
-            # identical sequences, since the search reads only
-            # not-yet-pivoted rows and those receive the same rank-1
-            # updates under both schemes.
-            from gpu_matrix_inversion_tpu.ops.blocked import _pivot_search
-            if pivot:
-                search = (strip.astype(jnp.bfloat16) if search_bf16
-                          else strip)
-                pivrows = _pivot_search(search, kb, used, m=m, b=b,
-                                        pivot=True, interpret=interpret)
-            else:
-                pivrows = kb + lax.broadcasted_iota(jnp.int32, (b,), 0)
-            # Panel content assembled algebraically: the pivot-row block
-            # dblk = L11 @ U11 factors in a small VMEM kernel; the
-            # multipliers for every other row are A21 @ U11^-1 (exactly
-            # the values sequential elimination would produce).
-            dblk = jnp.take(strip, pivrows, axis=0)
-            packed, okp = _small_lu(dblk, interpret=interpret)
-            ok = jnp.logical_and(ok, okp)
-            l11 = (jnp.where(tri_b, packed, jnp.zeros_like(packed))
-                   + jnp.eye(b, dtype=dtype))
-            u11 = jnp.where(tri_b, jnp.zeros_like(packed), packed)
-            lall = lax.linalg.triangular_solve(
-                u11, strip, left_side=False, lower=False)
-            order = jnp.full((m,), b, jnp.int32).at[pivrows].set(
-                jnp.arange(b, dtype=jnp.int32))
-            lmask = (order[:, None] > lane_b1).astype(dtype)
-            l_trunc = lall * lmask * (1 - used_before.astype(dtype))
-            # Packed panel write-back: frozen prior-U rows keep their strip
-            # values; this panel's pivot rows get [L11 strictly-lower |
-            # U11] (l_trunc supplies the L part, the one-hot GEMM deposits
-            # U11); unpivoted rows get their full multiplier rows.
-            psel = (rows == pivrows[None, :]).astype(dtype)   # (m, b)
-            w = (strip * used_before.astype(dtype) + l_trunc
-                 + jnp.matmul(psel, u11, preferred_element_type=dtype,
-                              precision=hp))
-            used = used + jnp.sum(psel, axis=1,
-                                  keepdims=True).astype(jnp.float32)
-        else:
-            w, pivrows, used, okp = _lu_panel(strip, used, kb, m=m, b=b,
-                                              pivot=pivot)
-            ok = jnp.logical_and(ok, okp)
-
-            # Truncated multiplier matrix: L[i, r] is live iff row i was
-            # eliminated at step r (still unpivoted then, and not used
-            # before the panel).
-            order = jnp.full((m,), b, jnp.int32).at[pivrows].set(
-                jnp.arange(b, dtype=jnp.int32))
-            lmask = (order[:, None] > lane_b1).astype(dtype)
-            l_trunc = w * lmask * (1 - used_before.astype(dtype))
-            l11 = jnp.where(tri_b, jnp.take(w, pivrows, axis=0),
-                            jnp.zeros((b, b), dtype))
-            l11 = l11 + jnp.eye(b, dtype=dtype)
+        w, pivrows, used, okp = _lu_panel(strip, used, kb, m=m, b=b,
+                                          pivot=pivot)
+        ok = jnp.logical_and(ok, okp)
+        l_trunc, l11 = _panel_multipliers(w, pivrows, used_before, m=m, b=b,
+                                          dtype=dtype)
 
         lu = lax.dynamic_update_slice(lu, w, (_i0, kb))
         pos = lax.dynamic_update_slice(pos, pivrows, (kb,))
@@ -355,8 +262,8 @@ def _lu_factor_blocked_2d(a, *, b: int, pivot: bool, use_pallas: bool = False,
             l11, arows, left_side=True, lower=True, unit_diagonal=True)
         u_rest = jnp.where(lane_m >= kb + b, u_all, jnp.zeros_like(u_all))
 
-        # Rank-b MXU trailing update; Lmask truncation makes it apply the
-        # right partial sums to this panel's own pivot rows too (their rest
+        # Rank-b trailing update; the truncation makes it apply the right
+        # partial sums to this panel's own pivot rows too (their rest
         # columns become U rows).
         lu = lu - jnp.matmul(l_trunc, u_rest, preferred_element_type=dtype,
                              precision=hp)
@@ -387,9 +294,8 @@ def _lu_group_sizes(num_panels: int, group: int):
     return out
 
 
-def _lu_factor_grouped_2d(a, *, b: int, group: int, pivot: bool,
-                          interpret: bool, search_bf16: bool):
-    """Two-level blocked getrf (the fp32 Pallas path).
+def _lu_factor_grouped_2d(a, *, b: int, group: int, pivot: bool):
+    """Two-level blocked getrf.
 
     The flat panel loop (``_lu_factor_blocked_2d``) pays one FULL-width
     rank-b trailing GEMM, one (b, m) row gather and one (b, m) triangular
@@ -402,8 +308,9 @@ def _lu_factor_grouped_2d(a, *, b: int, group: int, pivot: bool,
     a single rank-gw update. The group's U rows come from one unit-lower
     (gw, gw) solve in pivot order, and the same order-truncation identity
     as the panel level writes the pivot rows' own U values in the same
-    GEMM. Pivot search rides the shared Pallas kernel
-    (``matrix_inversion_FP32.cpp:68-142``'s two-stage argmax, blocked).
+    GEMM. Each panel is the swap-free jnp panel (``_lu_panel``, the
+    blocked form of ``matrix_inversion_FP32.cpp:68-142``'s two-stage
+    argmax).
     """
     n = a.shape[-1]
     m = max(((n + b - 1) // b) * b, b)
@@ -412,13 +319,6 @@ def _lu_factor_grouped_2d(a, *, b: int, group: int, pivot: bool,
         apad = jnp.eye(m, dtype=dtype)
         a = lax.dynamic_update_slice(apad, a, (0, 0))
 
-    from gpu_matrix_inversion_tpu.ops.blocked import _pivot_search
-
-    rows = lax.broadcasted_iota(jnp.int32, (m, 1), 0)
-    tri_b = (lax.broadcasted_iota(jnp.int32, (b, b), 0)
-             > lax.broadcasted_iota(jnp.int32, (b, b), 1))
-    lane_b1 = lax.broadcasted_iota(jnp.int32, (1, b), 1)
-    arange_b = lax.broadcasted_iota(jnp.int32, (b,), 0)
     hp = jax.lax.Precision.HIGHEST
 
     lu = a
@@ -437,33 +337,13 @@ def _lu_factor_grouped_2d(a, *, b: int, group: int, pivot: bool,
             strip, used, pivloc, ok = carry
             ib = i.astype(jnp.int32) * b
             pstrip = lax.dynamic_slice(strip, (_i0, ib), (m, b))
-            if pivot:
-                search = (pstrip.astype(jnp.bfloat16) if search_bf16
-                          else pstrip)
-                pivrows = _pivot_search(search, kb0 + ib, used, m=m, b=b,
-                                        pivot=True, interpret=interpret)
-            else:
-                pivrows = kb0 + ib + arange_b
-            dblk = jnp.take(pstrip, pivrows, axis=0)
-            packed, okp = _small_lu(dblk, interpret=interpret)
+            w, pivrows, used_new, okp = _lu_panel(pstrip, used, kb0 + ib,
+                                                  m=m, b=b, pivot=pivot)
             ok = jnp.logical_and(ok, okp)
-            l11 = (jnp.where(tri_b, packed, jnp.zeros_like(packed))
-                   + jnp.eye(b, dtype=dtype))
-            u11 = jnp.where(tri_b, jnp.zeros_like(packed), packed)
-            # Multipliers for every row: A_panel @ U11^-1 (for the pivot
-            # rows this reproduces L11's own rows).
-            lall = lax.linalg.triangular_solve(
-                u11, pstrip, left_side=False, lower=False)
-            order = jnp.full((m,), b, jnp.int32).at[pivrows].set(arange_b)
-            lmask = (order[:, None] > lane_b1).astype(dtype)
-            l_trunc = lall * lmask * (1 - used.astype(dtype))
-            psel = (rows == pivrows[None, :]).astype(dtype)   # (m, b)
-            w = (pstrip * used.astype(dtype) + l_trunc
-                 + jnp.matmul(psel, u11, preferred_element_type=dtype,
-                              precision=hp))
+            l_trunc, l11 = _panel_multipliers(w, pivrows, used, m=m, b=b,
+                                              dtype=dtype)
             strip = lax.dynamic_update_slice(strip, w, (_i0, ib))
-            used = used + jnp.sum(psel, axis=1,
-                                  keepdims=True).astype(jnp.float32)
+            used = used_new
             pivloc = lax.dynamic_update_slice(pivloc, pivrows, (ib,))
 
             # Internal trailing update, confined to the strip: U rows for
@@ -489,7 +369,7 @@ def _lu_factor_grouped_2d(a, *, b: int, group: int, pivot: bool,
             win = lax.slice(lu, (0, kb0 + gw), (m, m))        # (m, rest)
             # Materialize the gathered pivot rows before the trailing
             # update GEMM (same in-place hazard fix as ops/blocked.py's
-            # run_group: without it XLA copies the full lu buffer per
+            # run_group: without it XLA may copy the full lu buffer per
             # group to break the gather-while-overwriting hazard).
             arows_w = lax.optimization_barrier(
                 jnp.take(win, pivloc, axis=0))                # (gw, rest)
@@ -515,67 +395,37 @@ def _lu_factor_grouped_2d(a, *, b: int, group: int, pivot: bool,
     return lu, perm, ok
 
 
-@functools.partial(jax.jit, static_argnames=("pivot", "b", "use_pallas",
-                                             "interpret", "search_bf16",
-                                             "group"))
-def _lu_factor_blocked_jit(a, *, pivot: bool, b: int, use_pallas: bool,
-                           interpret: bool, search_bf16: bool,
-                           group: int = 0):
+@functools.partial(jax.jit, static_argnames=("pivot", "b", "group"))
+def _lu_factor_blocked_jit(a, *, pivot: bool, b: int, group: int = 0):
     batch, n = a.shape[:-2], a.shape[-1]
-    if use_pallas and group > 1:
+    if group > 1:
         fn = functools.partial(_lu_factor_grouped_2d, b=b, group=group,
-                               pivot=pivot, interpret=interpret,
-                               search_bf16=search_bf16)
+                               pivot=pivot)
     else:
-        fn = functools.partial(_lu_factor_blocked_2d, b=b, pivot=pivot,
-                               use_pallas=use_pallas, interpret=interpret,
-                               search_bf16=search_bf16)
-    a3 = a.reshape((-1, n, n))
-    if use_pallas and not interpret and a3.shape[0] > 1:
-        # jax.vmap of Pallas kernels HANGS the v5e (DESIGN.md section 5);
-        # on hardware, loop the batch through lax.map like ops/blocked.
-        lu, perm, ok = lax.map(fn, a3)
-    else:
-        lu, perm, ok = jax.vmap(fn)(a3)
+        fn = functools.partial(_lu_factor_blocked_2d, b=b, pivot=pivot)
+    lu, perm, ok = jax.vmap(fn)(a.reshape((-1, n, n)))
     return (lu.reshape(a.shape), perm.reshape(batch + (n,)),
             ok.reshape(batch))
 
 
+def _lu_group(b: int) -> int:
+    """Panels per group of the grouped getrf (``MATINV_LU_GROUP`` overrides;
+    1 = the flat per-panel loop)."""
+    return int(os.environ.get("MATINV_LU_GROUP", 0)) or _default_group_size(b)
+
+
 def lu_factor_blocked(a: jax.Array, *, pivot: bool = True,
                       block_size: int = 128):
-    """Blocked getrf: panel factorization + rank-b MXU trailing updates
-    (the fast path; :func:`lu_factor` is the executable spec). Returns
-    ``(lu, perm, ok)`` with the same convention as :func:`lu_factor`.
-
-    FP32 panels use the Pallas pivot-search kernel shared with the blocked
-    Gauss-Jordan path plus a small VMEM (b, b) LU kernel, two-level grouped
-    (``_lu_factor_grouped_2d``; ``MATINV_LU_GROUP`` overrides the panels per
-    group, 1 = the flat per-panel loop); other dtypes run the pure-jnp panel
-    loop (the executable twin)."""
+    """Blocked getrf: swap-free panel factorization + rank-b GEMM trailing
+    updates, two-level grouped (``_lu_factor_grouped_2d``); the fast path
+    (:func:`lu_factor` is the executable spec). Returns ``(lu, perm, ok)``
+    with the same convention as :func:`lu_factor`."""
     a = jnp.asarray(a)
     if a.ndim < 2 or a.shape[-1] != a.shape[-2]:
         raise ValueError(f"expected (..., n, n) square matrix, got {a.shape}")
     n = a.shape[-1]
-    from gpu_matrix_inversion_tpu.ops.blocked import (_default_group_size,
-                                                      _select_block_params)
-    from gpu_matrix_inversion_tpu.ops.fused import tpu_available
-    b, use_pallas, search_bf16 = _select_block_params(
-        n, min(block_size, max(n, 8)), a.dtype, False)
-    use_pallas = use_pallas and a.dtype == jnp.float32
-    if use_pallas:
-        group = int(os.environ.get("MATINV_LU_GROUP", 0)
-                    ) or _default_group_size(b)
-        interpret = not tpu_available()
-        # Trace/compile in 32-bit land: Mosaic cannot legalize the i64
-        # index plumbing x64 mode threads through pallas calls.
-        with jax.enable_x64(False):
-            return _lu_factor_blocked_jit(a, pivot=pivot, b=b,
-                                          use_pallas=True,
-                                          interpret=interpret,
-                                          search_bf16=search_bf16,
-                                          group=group)
-    return _lu_factor_blocked_jit(a, pivot=pivot, b=b, use_pallas=False,
-                                  interpret=False, search_bf16=False)
+    b = _panel_width(n, min(block_size, max(n, 8)))
+    return _lu_factor_blocked_jit(a, pivot=pivot, b=b, group=_lu_group(b))
 
 
 @jax.jit
@@ -601,8 +451,8 @@ def lu_solve_fast(lu: jax.Array, perm: jax.Array, b: jax.Array):
 
 # --------------------------------------------------------------------------
 # Blocked triangular inversion (trtri). LAPACK's getri is built on trtri(U)
-# rather than solves against the identity; this is the TPU-shaped version:
-# batched diagonal-block inverses, then log2(#blocks) levels of BATCHED MXU
+# rather than solves against the identity; this is the GEMM-shaped version:
+# batched diagonal-block inverses, then log2(#blocks) levels of BATCHED
 # GEMMs (every recursion node at a level has identical shapes, so each level
 # is one batched matmul instead of 2^k small ones). Replaces the reference's
 # O(N) serial elimination sweep for the inverse-assembly phase.
@@ -610,10 +460,10 @@ def lu_solve_fast(lu: jax.Array, perm: jax.Array, b: jax.Array):
 
 
 def _trtri_default_b(n: int) -> int:
-    """Measured-on-v5e base block: 1024 beats 256 at 4096 (L+U pair 5.9 vs
-    7.4 ms) and 8192 (42.7 vs 49.9 ms) -- fewer levels means fewer
-    level-boundary gathers/concats and larger batched GEMMs; below 2048 a
-    1024 base would BE most of the matrix, so keep a real bisection."""
+    """Base block: fewer levels means fewer level-boundary gathers/concats
+    and larger batched GEMMs; below 2048 a 1024 base would BE most of the
+    matrix, so keep a real bisection. A starting value, not yet tuned on
+    the card."""
     return 1024 if n >= 2048 else 256
 
 
@@ -621,8 +471,8 @@ def _tri_mm_chunks(s: int) -> int:
     """Cross-GEMM chunking factor: the bisection's cross products contract
     against TRIANGULAR sub-inverses, so a dense (s, s) GEMM schedules ~2x
     the needed MACs. Chunking in 4 strips cuts the multiplier to
-    (1 + 1/4)/2 = 0.625 while keeping every strip >= 128 lanes wide (MXU
-    tile); below s=512 the strips get too narrow to pay."""
+    (1 + 1/4)/2 = 0.625 while keeping every strip >= 128 columns wide;
+    below s=512 the strips get too narrow to pay."""
     return 4 if s >= 512 else 1
 
 
@@ -636,8 +486,8 @@ def _trtri_blocked_2d(t: jax.Array, *, lower: bool, unit_diagonal: bool,
     (``_tri_mm_chunks``). Pads n to b * 2^L with identity so every level is
     a uniform batch. All value-carrying GEMMs run at HIGHEST (CLAUDE.md #5).
     ``canvas=True`` (default) assembles levels in place on an (m, m) canvas
-    with static-offset slices instead of stack/concat rebuilds -- measured
-    faster on the v5e (round 5; see the canvas branch comment).
+    with static-offset slices instead of stack/concat rebuilds (see the
+    canvas branch comment).
     """
     n = t.shape[-1]
     dt = t.dtype
@@ -708,14 +558,13 @@ def _trtri_blocked_2d(t: jax.Array, *, lower: bool, unit_diagonal: bool,
         return jnp.concatenate(rows_, axis=-2)
 
     if canvas:
-        # Canvas assembly (round 5, VERDICT r4 #1a): the batched formulation
+        # Canvas assembly: the batched formulation
         # below pays a strided block gather (`off` stack) plus a FULL
         # rebuild of x (three concats over the whole live area) at every
         # level; the canvas writes each level's cross blocks in place with
         # static-offset slices/updates and never moves the diagonal
-        # sub-inverses at all. Same GEMMs (per pair instead of batched --
-        # at the >=512 sizes this path gates on, unbatched MXU GEMMs lose
-        # nothing), ~1/4 the copies.
+        # sub-inverses at all. Same GEMMs (per pair instead of batched),
+        # ~1/4 the copies.
         xc = jnp.zeros((m, m), dt)
         for i in range(nb):
             xc = lax.dynamic_update_slice(xc, x[i], (i * b, i * b))
@@ -765,10 +614,10 @@ def invert_triangular(t: jax.Array, *, lower: bool = True,
     """trtri: explicit inverse of a triangular matrix, batched over leading
     axes. Returns ``(inverse, ok)``; ``ok`` is False on a zero diagonal
     (or any non-finite output). The off-triangle of ``t`` is ignored.
-    ``b`` overrides the measured-default base block (``_trtri_default_b``).
+    ``b`` overrides the default base block (``_trtri_default_b``).
     Replaces the reference's O(N)-launch serial elimination sweep tier
     (``matrix_inversion_FP32.cpp:622-705``) with log2(n/b) levels of
-    batched MXU GEMMs for the inverse-assembly phase."""
+    batched GEMMs for the inverse-assembly phase."""
     if t.ndim < 2 or t.shape[-1] != t.shape[-2]:
         raise ValueError(f"expected (..., n, n) square matrix, got {t.shape}")
     n = t.shape[-1]
@@ -795,27 +644,22 @@ def _getri_product(left: jax.Array, linv: jax.Array, *, chunk: int = 512,
     """``left @ linv`` exploiting ``linv``'s LOWER triangularity (batched
     over leading axes): column-chunk J only multiplies the rows of ``linv``
     at or below J's start (the rest are zero), cutting the dense n^3 MACs
-    to ~n^3/2 at chunk << n. Static Python loop; one MXU GEMM per chunk
-    (chunk=512 measured faster than 1024 at 4096: 2.6 vs 3.1 ms -- the
-    extra triangularity win beats the narrower GEMMs). Used by getri
-    (left = U^-1) and potri (left = L^-T).
+    to ~n^3/2 at chunk << n. Static Python loop; one GEMM per chunk
+    (chunk and rchunk are starting values, not yet tuned on the card).
+    Used by getri (left = U^-1) and potri (left = L^-T).
 
     ``left_transposed=True`` computes ``left.T @ linv`` by contracting on
-    ``left``'s ROW axis directly (the MXU takes either operand layout), so
-    potri never materializes the (n, n) transpose of ``L^-1`` -- a pure
-    relayout copy the r5 trace showed on the potri timeline.
+    ``left``'s ROW axis directly (dot_general takes either operand
+    layout), so potri never materializes the (n, n) transpose of
+    ``L^-1`` -- a pure relayout copy.
 
     ``left_triangular=True`` additionally exploits that ``left`` (after the
     optional transpose) is UPPER triangular -- true for both callers
     (getri's U^-1; potri's L^-T): row-chunk I of the output only needs
     contraction indices k >= max(i0, j0), trimming the MACs further to
-    ~n^3/3 at rchunk, chunk << n. Per (I, J) tile one MXU GEMM with a
+    ~n^3/3 at rchunk, chunk << n. Per (I, J) tile one GEMM with a
     static k offset; out-of-range contributions are exact zeros, so the
-    tiling is algebraically exact, not an approximation. Measured (v5e,
-    same-window interleaved, both forms): 8192 old 19.9 ms -> 2-D
-    r512/c512 14.7-15.0; 4096 old 2.5 -> 1.7-2.4 -- the ~0.70 MAC ratio
-    delivered, with r512/c512 the most consistent tile across sizes and
-    forms (r1024/c1024 occasionally reads faster but wobbles +-15%)."""
+    tiling is algebraically exact, not an approximation."""
     n = linv.shape[-1]
     hp = jax.lax.Precision.HIGHEST
     nb = left.ndim - 2
@@ -868,9 +712,9 @@ def _lu_inverse_trtri(a: jax.Array):
     linv, ok_l = invert_triangular(lu, lower=True, unit_diagonal=True)
     uinv, ok_u = invert_triangular(lu, lower=False, unit_diagonal=False)
     # linv/uinv are slice/concat-built intermediates consumed ONLY by the
-    # GEMMs below inside one jit program -- the XLA:TPU dead-intermediate
-    # rewrite trigger (DESIGN.md section 9, CLAUDE.md hazard #6); guard the
-    # seam like ops/refine.py does.
+    # GEMMs below inside one jit program -- the pattern a compiler
+    # dead-intermediate rewrite once corrupted (DESIGN.md section 8); guard
+    # the seam like ops/refine.py does.
     linv, uinv = lax.optimization_barrier((linv, uinv))
     prod = _getri_product(uinv, linv, left_triangular=True)
     # A^-1 = U^-1 L^-1 P and (P x)[i] = x[perm[i]], so column j of the
@@ -885,12 +729,10 @@ def _lu_inverse_trtri(a: jax.Array):
 
 
 # Above this order the one-shot getri solve (triangular solves against the
-# full (n, n) identity) exceeds single-chip HBM: XLA:TPU's triangular-solve
-# lowering plus the factor loop holds tens of n^2 f32 temporaries live
-# (measured: 20.9 GB of HLO temp at n=11000 vs 15.75 GB HBM; OOM at 10240,
-# fits at 8192). The chunked solve bounds the RHS to (n, chunk) per step.
-# Only reachable on the opt-in MATINV_GETRI_ROUTE=solve path: the default
-# trtri route holds ~5 n^2 and never chunks.
+# full (n, n) identity) can hold tens of n^2 temporaries live; the chunked
+# solve bounds the RHS to (n, chunk) per step. Only reachable on the opt-in
+# MATINV_GETRI_ROUTE=solve path: the default trtri route holds ~5 n^2 and
+# never chunks.
 GETRI_CHUNK_MIN_N = 8192 + 1
 
 
@@ -933,9 +775,8 @@ def lu_inverse_fast(a: jax.Array, *, chunk: int = 2048):
     to, ``README.md:62``).
 
     Single matrices take the trtri composition ``A^-1 = U^-1 L^-1 P``
-    (LAPACK's own getri shape: measured faster than the identity-RHS solve
-    AND ~5 n^2 live temporaries, so it needs no chunking at any order the
-    chip can hold). Batched inputs take the solve route, whose one
+    (LAPACK's own getri shape: GEMM-rich, and ~5 n^2 live temporaries, so
+    it needs no chunking at any order the device can hold). Batched inputs take the solve route, whose one
     triangular-solve pair amortizes over the batch. ``MATINV_GETRI_ROUTE=
     solve`` forces the solve route for single matrices (identity chunked
     past :data:`GETRI_CHUNK_MIN_N` to bound temp memory)."""
@@ -960,7 +801,7 @@ def _lu_inverse_fast_oneshot(a: jax.Array):
 
 
 # --------------------------------------------------------------------------
-# Scheduled-flop models (VERDICT r3 #2): count the MACs the implementations
+# Scheduled-flop models: count the MACs the implementations
 # above actually issue (2 flops per MAC), so bench.py can report honest
 # effective rates/MFU next to the reference's algorithmic models
 # (``matrix_inversion_FP64.cpp:751-755``). Triangular solves are counted at
@@ -1009,22 +850,17 @@ def _getri_product_flops(n: int, chunk: int = 512,
 
 
 def getrf_effective_flops(n: int, *, block_size: int = 128) -> int:
-    """Flops :func:`lu_factor_blocked`'s grouped fp32 path schedules."""
-    from gpu_matrix_inversion_tpu.ops.blocked import (_default_group_size,
-                                                      _select_block_params)
-    b, _, _ = _select_block_params(n, min(block_size, max(n, 8)),
-                                   jnp.float32, False)
-    group = int(os.environ.get("MATINV_LU_GROUP", 0)
-                ) or _default_group_size(b)
+    """Flops :func:`lu_factor_blocked`'s grouped path schedules."""
+    b = _panel_width(n, min(block_size, max(n, 8)))
+    group = _lu_group(b)
     m = max(-(-n // b) * b, b)
     fl = 0
     for k0, gsize in _lu_group_sizes(m // b, group):
         gw = gsize * b
         rest = m - k0 * b - gw
-        # Per panel: lall solve (m, b) + psel @ u11 + u_all (b, gw) solve
-        # + rank-b strip GEMM + the search kernel's deferred dots (~m*b^2).
-        fl += gsize * (m * b * b + 2 * m * b * b + b * b * gw
-                       + 2 * m * b * gw + 2 * m * b * b)
+        # Per panel: the b rank-1 panel steps (~m*b^2 MACs) + u_all (b, gw)
+        # solve + rank-b strip GEMM.
+        fl += gsize * (2 * m * b * b + b * b * gw + 2 * m * b * gw)
         if rest:
             fl += gw * gw * rest       # u_rest unit-lower solve
             fl += 2 * m * gw * rest    # rank-gw window update
@@ -1047,7 +883,8 @@ def cond_estimate(a: jax.Array, inv: jax.Array, *, iters: int = 8,
     The gecon-shaped diagnostic the reference never had (its only quality
     signal was the post-hoc identity check, FP32.cpp:814-835): power
     iteration on ``A^T A`` and ``inv^T inv`` estimates ||A||_2 and
-    ||A^-1||_2; their product estimates cond_2(A). Fully batched, pure MXU.
+    ||A^-1||_2; their product estimates cond_2(A). Fully batched, pure
+    GEMM work.
     """
     n = a.shape[-1]
     hp = jax.lax.Precision.HIGHEST
@@ -1080,7 +917,7 @@ def slogdet(a: jax.Array):
     for free, ``matrix_inversion_FP32.cpp:622-705``'s pivot loop already
     computes every pivot). ``det(A) = sign(P) * prod(diag(U))``; the
     permutation sign is the parity of its inversion count -- an O(n^2)
-    boolean reduction, which vectorizes on TPU where cycle-walking would
+    boolean reduction, which vectorizes where cycle-walking would
     serialize. Exactly singular input gives ``sign=0, logabsdet=-inf``
     (numpy's value convention) and ``ok=False`` (the factor's zero-pivot
     flag, consistent with the library-wide ``(result, ok)`` contract)."""

@@ -1,17 +1,16 @@
 """Precision refinement: FP32 factorizations to FP64-level residuals.
 
-FP64 on TPU is software-emulated and slow (SURVEY.md section 7, hard part c),
-so the TPU-native answer to the reference's FP64 path is *mixed precision*:
-factor/invert in FP32 on the MXU, then tighten the residual with
+Besides the native FP64 paths, the reference's FP64 results can be reached
+by *mixed precision*: factor/invert in FP32, then tighten the residual with
 
 - **Newton-Schulz iteration** ``X <- X + X @ (I - A @ X)``: each step squares
-  the residual (quadratic convergence), costs 2 GEMMs -- pure MXU work.
+  the residual (quadratic convergence), costs 2 GEMMs.
 - **Iterative refinement** for solves: residual in higher precision, cheap
   LU re-solve for the correction (the classic LAPACK sgesv/dsgesv scheme).
 
-With ``residual_dtype=float64`` (requires x64; emulated on TPU, native on
-CPU) the refined FP32 inverse reaches FP64-level residuals on the
-ill-conditioned test set (BASELINE.md configs[3]).
+With ``residual_dtype=float64`` (requires x64) the refined FP32 inverse
+reaches FP64-level residuals on the ill-conditioned test set (BASELINE.md
+configs[3]).
 """
 
 from __future__ import annotations
@@ -33,21 +32,22 @@ def newton_schulz_refine(a: jax.Array, x: jax.Array, *, iters: int = 2,
     n = a.shape[-1]
     eye = jnp.eye(n, dtype=rd)
     a_h = a.astype(rd)
-    # MISCOMPILE GUARD (measured on v5e, jax 0.9.0): when the approximate
-    # inverse is consumed ONLY by this refine (its array never escaping the
-    # jit program), XLA:TPU restructures the producer's gather/slice/select
-    # chain into the refine GEMMs and the refined residual degrades ~4
-    # orders of magnitude (n=1950 hollow: 3e-8 -> 1.7e-4), data-dependently
-    # and TPU-only -- returning the intermediate from the same program, or
-    # this barrier, restores the exact result bit-for-bit. The barrier only
-    # pins a fusion boundary; it costs nothing against the O(n^3) GEMMs.
+    # MISCOMPILE GUARD: when the approximate inverse is consumed ONLY by
+    # this refine (its array never escaping the jit program), a compiler
+    # rewrite that restructured the producer's gather/slice/select chain
+    # into the refine GEMMs once degraded the refined residual by orders of
+    # magnitude on the n=1950 seed=1950 hollow input (DESIGN.md section 8);
+    # returning the intermediate from the same program, or this barrier,
+    # restored the exact result. The barrier only pins a fusion boundary;
+    # it costs nothing against the O(n^3) GEMMs. chip_smoke.py checks that
+    # input on the card.
     x = jax.lax.optimization_barrier(x)
     x_h = x.astype(rd)
-    # The residual GEMM must be exact-f32 (HIGHEST: TPU f32 matmul defaults
-    # to bf16 passes); the correction GEMM X @ R can run one tier down --
-    # its bf16x3 error is relative to ||X||*||R|| ~ residual-sized, i.e.
-    # ~1e-4 * residual in the refined result, far below the step's own
-    # quadratic convergence floor. Saves ~1/4 of the polish cost on v5e.
+    # The residual GEMM must be exact-f32 (HIGHEST: a default-precision f32
+    # product may run in reduced precision, e.g. TF32 on a GPU); the
+    # correction GEMM X @ R can run one tier down -- its error is relative
+    # to ||X||*||R|| ~ residual-sized, far below the step's own quadratic
+    # convergence floor.
     corr_prec = (jax.lax.Precision.HIGH if rd == jnp.float32
                  else jax.lax.Precision.HIGHEST)
     for _ in range(iters):
@@ -71,7 +71,7 @@ def refine_solve(a: jax.Array, b: jax.Array, x: jax.Array, lu: jax.Array,
     rd = jnp.dtype(residual_dtype) if residual_dtype is not None else x.dtype
     b_h = b.astype(rd)
     a_h = a.astype(rd)
-    # Same XLA:TPU dead-intermediate miscompile guard as
+    # Same dead-intermediate miscompile guard as
     # newton_schulz_refine: the initial solve and each correction reach
     # this loop through gather chains (permutation rows in lu_solve).
     x_h = jax.lax.optimization_barrier(x).astype(rd)

@@ -3,9 +3,9 @@
 The reference runs on exactly one GPU (``platforms[0]/devices[0]``,
 matrix_inversion_FP32.cpp:293; SURVEY.md section 2 parallelism checklist).
 This package is the scaling story the reference never had: the augmented
-system column-sharded over an ICI mesh via ``shard_map``, one pivot-panel
-broadcast (``psum``) per panel, trailing updates as local MXU GEMMs
-(BASELINE.md configs[4], 16384^2 beyond single-chip HBM).
+system column-sharded over a device mesh via ``shard_map``, one pivot-strip
+broadcast (``psum``) per panel group, trailing updates as local GEMMs
+(BASELINE.md configs[4], 16384^2 and beyond one device's memory).
 """
 
 from gpu_matrix_inversion_tpu.parallel.mesh import make_device_mesh

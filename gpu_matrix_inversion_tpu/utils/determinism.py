@@ -1,11 +1,11 @@
-"""Determinism checking: the TPU-era analog of race detection.
+"""Determinism checking: the accelerator-era analog of race detection.
 
 The reference has no sanitizers; its correctness rests on in-order queue
 semantics and in-kernel barriers, with known fragilities SURVEY.md section 5
 says not to replicate (barrier inside divergent control flow, out-of-bounds
-padding writes). On TPU the equivalent failure mode is nondeterminism from
-unstable reductions, uninitialized scratch, or data races in hand-written
-DMA kernels. This utility catches all of those the same way a race detector
+padding writes). Here the equivalent failure mode is nondeterminism from
+unstable reductions, uninitialized scratch, or races in hand-written
+kernels. This utility catches all of those the same way a race detector
 would: run the computation twice (optionally with a scratch-poisoning run in
 between) and demand bit-identical results.
 """
@@ -23,7 +23,7 @@ def check_deterministic(fn: Callable, *args, runs: int = 3,
     """Run ``fn(*args)`` ``runs`` times; return ``(bit_identical, max_diff)``.
 
     ``perturb=True`` interleaves a differently-shaped dummy computation
-    between runs so reused scratch/VMEM buffers hold garbage -- an
+    between runs so reused scratch buffers hold garbage -- an
     uninitialized-read bug then shows up as run-to-run drift.
     """
     outs = []

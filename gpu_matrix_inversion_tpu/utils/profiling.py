@@ -3,8 +3,8 @@
 The reference instruments with (a) std::chrono wall-clock spans around every
 phase and (b) OpenCL event profiling on the hot kernel, printing phase
 traces and derived GFLOPS to stdout (``matrix_inversion_FP32.cpp:256-263``,
-``matrix_inversion_FP64.cpp:751-755``; SURVEY.md section 5). TPU-native
-equivalents:
+``matrix_inversion_FP64.cpp:751-755``; SURVEY.md section 5). Equivalents
+here:
 
 - :func:`trace`: wraps ``jax.profiler`` to capture an XLA trace viewable in
   TensorBoard/Perfetto (replaces per-kernel CL event timing -- the XLA
@@ -38,9 +38,8 @@ def trace(log_dir: str):
 def device_info() -> dict:
     """Device-capability dump (reference FP32.cpp:304-333 prints
     CL_DEVICE_* attributes: max workgroup size, global/local memory,
-    compute units). TPU equivalents: HBM limits/usage from the runtime's
-    memory stats, core counts, plus the VMEM budget the Pallas kernel
-    gating in ops/blocked assumes (the analog of CL_DEVICE_LOCAL_MEM_SIZE).
+    compute units). Equivalents here: platform, device kind, and device
+    memory limit/usage from the runtime's memory stats.
     """
     import jax
     devs = jax.devices()
@@ -54,9 +53,10 @@ def device_info() -> dict:
         }
         try:
             stats = d.memory_stats() or {}
-            entry["hbm_bytes_limit"] = stats.get("bytes_limit")
-            entry["hbm_bytes_in_use"] = stats.get("bytes_in_use")
-            entry["hbm_peak_bytes_in_use"] = stats.get("peak_bytes_in_use")
+            entry["memory_bytes_limit"] = stats.get("bytes_limit")
+            entry["memory_bytes_in_use"] = stats.get("bytes_in_use")
+            entry["memory_peak_bytes_in_use"] = stats.get(
+                "peak_bytes_in_use")
         except Exception:  # pragma: no cover - backends without stats
             pass
         return {k: v for k, v in entry.items() if v is not None}
@@ -64,9 +64,6 @@ def device_info() -> dict:
     info = {
         "backend": jax.default_backend(),
         "device_count": len(devs),
-        # The working assumption behind ops/blocked._select_block_params'
-        # size gates (~16 MiB VMEM/core on v4/v5 TPUs).
-        "vmem_bytes_assumed": 16 * 1024 * 1024,
         "devices": [one(d) for d in devs],
     }
     return info

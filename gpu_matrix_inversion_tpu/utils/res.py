@@ -1,4 +1,4 @@
-"""Phase-timing record: the TPU analog of the reference's ``Res`` struct.
+"""Phase-timing record: the analog of the reference's ``Res`` struct.
 
 The reference's benchmark variants accumulate 10-11 phase wall-clock timings
 plus the inverse into ``Res {inversa64, times, inversa32}``
@@ -6,7 +6,7 @@ plus the inverse into ``Res {inversa64, times, inversa32}``
 queue, buffers, compile, makeAugmented, pivot, row, column, totalCompute,
 getInverted, total (plus crr/copy for the no-pivot bench).
 
-On TPU there is no per-kernel host timeline -- the whole r-loop is one fused
+Here there is no per-kernel host timeline -- the whole r-loop is one fused
 XLA program -- so the phases that survive are: trace+compile, device transfer,
 compute (block_until_ready), readback, total. The ``times`` dict keys below
 map onto the reference's slots where a counterpart exists.
@@ -39,8 +39,8 @@ class Res:
         """Reference-ordered timing vector (FP32_bench.cpp slot order).
 
         ``no_pivot=True`` appends the crr/copy slots of the no-pivot bench
-        (``matrix_inversion_no_pivots_benchmark.cpp:492-495``). On TPU both
-        stages are fused into the factor kernel (the diagonal fetch is the
+        (``matrix_inversion_no_pivots_benchmark.cpp:492-495``). Here both
+        stages are fused into the factorization (the diagonal fetch is the
         trivial branch of the pivot search; no column snapshot exists
         because elimination is out-of-place in registers), so the slots
         exist for Res parity and read 0 unless a profiler fills them.

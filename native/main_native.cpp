@@ -1,4 +1,4 @@
-// Native benchmark driver: the TPU analog of the reference's C++ main()
+// Native benchmark driver: the analog of the reference's C++ main()
 // (reference main_file.cpp:13-126: sweep N with hollow random matrices,
 // call a variant selected by #defines, log "N <times> <error>" rows).
 //

@@ -1,4 +1,4 @@
-/* matinv.h — C API of libmatinv_tpu.so, the TPU-native product library.
+/* matinv.h — C API of libmatinv_tpu.so, the product library.
  *
  * The reference ships Matlab/mat_inv_32.h:1-5 as the consumer-facing
  * contract of its MATLAB static library; this header is the equivalent for

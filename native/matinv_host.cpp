@@ -1,6 +1,6 @@
 // Host-side native utilities (C ABI).
 //
-// TPU-native counterpart of the reference's C++ host-side roles: test-matrix
+// Counterpart of the reference's C++ host-side roles: test-matrix
 // construction (reference main_file.cpp:41-52 builds hollow random matrices
 // with mt19937) and the verification GEMM + residual (reference
 // matrix_multiply.cpp:17-36 runs a naive O(N^3) GPU kernel). Here the

@@ -1,13 +1,13 @@
-% test_inversa_mat.m — MATLAB consumer of the TPU-native inversion library.
+% test_inversa_mat.m — MATLAB consumer of the native inversion library.
 %
 % The analog of the reference's FP32_matlab_version/test_inversa_mat.mlx
-% (workflow at /root/reference/README.md:25-57): where the reference imports
+% (workflow at the reference README.md:25-57): where the reference imports
 % its Windows static library via clibgen, this script loads the Linux shared
 % library via loadlibrary/calllib against native/matinv.h.
 %
 % Prerequisites (run once, from the repo root):
 %   make -C native
-%   export PYTHONPATH=/opt/venv/lib/python3.12/site-packages:$PWD
+%   export PYTHONPATH=<site-packages>:$PWD
 %   (start MATLAB from that shell so the embedded interpreter finds JAX)
 %
 % This file cannot execute in this repo's CI (no MATLAB); it is kept
@@ -55,7 +55,7 @@ oPtr = libpointer('singlePtr', zeros(64, 1, 'single'));
 rc = calllib('libmatinv_tpu', 'matrix_inv_32', sPtr, 8, oPtr);
 assert(rc == 1, 'singular matrix must report rc == 1, got %d', rc);
 
-% Solve path (no reference analog — TPU-library extra): A x = b.
+% Solve path (no reference analog — an extra of this library): A x = b.
 k = 4;
 b = single(randn(n, k));
 bPtr = libpointer('singlePtr', reshape(b', [], 1));

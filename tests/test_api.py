@@ -113,8 +113,7 @@ def test_strict_identity_verify_catches_finite_garbage():
 
 def test_no_pivots_bench_res_slots():
     """The orphaned no-pivot benchmark's crr/copy Res slots
-    (..._no_pivots_benchmark.cpp:492-495) exist on the TPU Res too
-    (VERDICT r2 missing #2)."""
+    (..._no_pivots_benchmark.cpp:492-495) exist on this Res too."""
     from gpu_matrix_inversion_tpu import no_pivots_bench
     n = 24
     good = well_conditioned_matrix(n, seed=12, dtype=np.float64)

@@ -1,4 +1,4 @@
-"""Tests of the blocked (MXU rank-b trailing update) Gauss-Jordan path."""
+"""Tests of the blocked (rank-b GEMM trailing update) Gauss-Jordan path."""
 
 import numpy as np
 
@@ -59,91 +59,17 @@ def test_blocked_batched():
     assert bool(np.all(np.asarray(ok)))
 
 
-def test_blocked_batched_map_matches_vmap():
-    """On TPU, batched blocked inputs loop through lax.map (vmapped Pallas
-    kernels hang the v5e; DESIGN.md section 5) while CPU interpret keeps
-    vmap -- the two lowerings of the same single-matrix body must be
-    bit-identical."""
-    import functools
-    import jax
-    from jax import lax
-    from gpu_matrix_inversion_tpu.ops.blocked import (_PRECISIONS,
-                                                      _blocked_gj)
-
-    a = np.stack([hollow_random_matrix(96, seed=s) for s in (44, 45, 46)])
-    fn = functools.partial(_blocked_gj, pivot=True, b=32, use_pallas=True,
-                           interpret=True,
-                           precision=_PRECISIONS["highest"],
-                           search_bf16=False, group_size=2)
-    inv_map, ok_map = jax.jit(lambda x: lax.map(fn, x))(a)
-    inv_vmap, ok_vmap = jax.jit(jax.vmap(fn))(a)
-    assert bool(np.all(np.asarray(ok_map))) and bool(
-        np.all(np.asarray(ok_vmap)))
-    np.testing.assert_array_equal(np.asarray(inv_map), np.asarray(inv_vmap))
-
-
-def test_factor_kernel_version_gate():
-    """v2 (the r4 latency-tuned kernel) is the default exactly where its
-    static unroll fits the Mosaic VMEM stack AND the strip is not bf16
-    (Mosaic cannot lower v2's merged packed-bf16 working set -- the r4
-    oracle run caught the unwired dtype gate at _pivot_search)."""
-    import jax.numpy as jnp
-    from gpu_matrix_inversion_tpu.ops.blocked import (_factor_kernel_version,
-                                                      _v2_unroll)
-
-    assert _factor_kernel_version(4096, 128, jnp.float32) == "v2"
-    assert _factor_kernel_version(256, 128, jnp.float32) == "v2"
-    assert _factor_kernel_version(8192, 64, jnp.float32) == "v1"
-    # bf16 strips keep v1 at every size, including ones the unroll fits.
-    assert _factor_kernel_version(256, 128, jnp.bfloat16) == "v1"
-    assert _factor_kernel_version(16384, 64, jnp.bfloat16) == "v1"
-    assert _v2_unroll(4096, 128) and not _v2_unroll(8192, 64)
-
-
 def test_default_group_size_divides_panels():
-    """Round-4 rule: at m <= 8192 the default group divides the panel
-    count (a tail group costs ~1.2 ms of layout-conversion copies at the
-    fori_loop boundary -- DESIGN.md 6e); past 8192 the gw~1536 rule
-    stands."""
+    """At m <= 8192 the default group divides the panel count (no unrolled
+    tail group after the full ones); past 8192 the gw=1024 target stands,
+    and callers without a panel count get gw~1536."""
     from gpu_matrix_inversion_tpu.ops.blocked import _default_group_size
 
     assert _default_group_size(128, 32) == 8      # 4096^2: gw=1024, no tail
-    assert _default_group_size(128, 64) == 8      # 8192^2: gw=1024 (r5 retune)
-    assert _default_group_size(64, 256) == 16     # 16384^2 b=64: gw=1024 (r5)
+    assert _default_group_size(128, 64) == 8      # 8192^2: gw=1024
+    assert _default_group_size(64, 256) == 16     # 16384^2 b=64: gw=1024
     assert _default_group_size(128, 16) == 8      # 2048^2: divides
     assert 32 % _default_group_size(128, 32) == 0
     # Legacy callers without a panel count keep the r3 rule.
     assert _default_group_size(128) == 12
     assert _default_group_size(64) == 24
-
-
-def test_fp64_panel_f32_search_matches_logical():
-    """VERDICT r4 #4 tier (DESIGN.md 6h.3): the f32 Pallas pivot search
-    feeding the algebraic f64 panel assembly must pick the same pivots and
-    produce a bit-identical composite transform as the pure-logical f64
-    route on generic (tie-free) inputs -- the downstream algebra is shared,
-    only the search differs."""
-    import jax.numpy as jnp
-    from gpu_matrix_inversion_tpu.ops.blocked import _factor_panel
-    rng = np.random.default_rng(7)
-    m, b = 256, 64
-    strip = jnp.asarray(rng.standard_normal((m, b)), dtype=jnp.float64)
-    used = jnp.zeros((m, 1), jnp.float32)
-    common = dict(m=m, b=b, dtype=jnp.float64, pivot=True, use_pallas=False,
-                  interpret=True, search_bf16=False, emit=False)
-    p1, c1, ok1 = _factor_panel(strip, jnp.int32(0), used, **common,
-                                search_f32=True)
-    p2, c2, ok2 = _factor_panel(strip, jnp.int32(0), used, **common,
-                                search_f32=False)
-    assert bool(ok1) and bool(ok2)
-    np.testing.assert_array_equal(np.asarray(p1), np.asarray(p2))
-    np.testing.assert_array_equal(np.asarray(c1), np.asarray(c2))
-    # A later panel, with the first panel's rows consumed.
-    used2 = used.at[np.asarray(p1)].set(1.0)
-    p3, c3, ok3 = _factor_panel(strip, jnp.int32(b), used2, **common,
-                                search_f32=True)
-    p4, c4, ok4 = _factor_panel(strip, jnp.int32(b), used2, **common,
-                                search_f32=False)
-    assert bool(ok3) and bool(ok4)
-    np.testing.assert_array_equal(np.asarray(p3), np.asarray(p4))
-    np.testing.assert_array_equal(np.asarray(c3), np.asarray(c4))

@@ -1,7 +1,7 @@
 """Cholesky family: potrf / potrs / potri, plus LU-derived det/slogdet.
 
 The SPD path is a capability the reference never had (its README concedes
-LAPACK-shaped factorizations win, /root/reference/README.md:62); these tests
+LAPACK-shaped factorizations win, the reference README.md:62); these tests
 gate it against numpy.linalg the way the LU suite gates getrf/getri."""
 
 import numpy as np

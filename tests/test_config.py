@@ -98,22 +98,42 @@ def test_inverter_sharded_method():
     assert relative_residual(a, np.asarray(x)) < 1e-5
 
 
-def test_phase_breakdown(monkeypatch, capsys):
-    """MATINV_DEBUG_PHASES fills the reference's pivot/row/column Res slots
-    (VERDICT r1 #8) and print_phase_report shows them."""
-    import numpy as np
-    from gpu_matrix_inversion_tpu import fp32_bench
-    from gpu_matrix_inversion_tpu.utils.profiling import print_phase_report
-    from gpu_matrix_inversion_tpu.utils.generators import hollow_random_matrix
+def test_compile_cache_default_dir(monkeypatch):
+    """Without JAX_COMPILATION_CACHE_DIR the cache lives at the fixed
+    in-checkout .jax_cache, and that directory is set on JAX's config."""
+    import jax
+    from gpu_matrix_inversion_tpu.utils import config as C
 
-    monkeypatch.setenv("MATINV_DEBUG_PHASES", "1")
-    a = hollow_random_matrix(512, seed=4)
-    res = fp32_bench(a.reshape(-1), 512)
-    assert res.ok
-    for key in ("make_augmented", "pivot", "row", "column"):
-        assert key in res.times and res.times[key] >= 0.0
-    vec = res.times_vector()
-    assert len(vec) == 10
-    print_phase_report(res, 512)
-    out = capsys.readouterr().out
-    assert "pivot" in out and "column" in out
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    monkeypatch.delenv("MATINV_COMPILE_CACHE", raising=False)
+    prev = jax.config.jax_compilation_cache_dir
+    try:
+        got = C.enable_compile_cache()
+        root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        assert got == os.path.join(root, ".jax_cache")
+        assert jax.config.jax_compilation_cache_dir == got
+    finally:
+        jax.config.update("jax_compilation_cache_dir", prev)
+
+
+def test_compile_cache_respects_env(monkeypatch):
+    """With JAX_COMPILATION_CACHE_DIR set, no directory is set in code
+    (JAX reads the variable itself); disabling returns None."""
+    import jax
+    from gpu_matrix_inversion_tpu.utils import config as C
+
+    monkeypatch.delenv("MATINV_COMPILE_CACHE", raising=False)
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", "/elsewhere/cache")
+    prev = jax.config.jax_compilation_cache_dir
+    calls = []
+    real_update = jax.config.update
+    monkeypatch.setattr(jax.config, "update",
+                        lambda k, v: (calls.append(k), real_update(k, v)))
+    try:
+        assert C.enable_compile_cache() == "/elsewhere/cache"
+        assert "jax_compilation_cache_dir" not in calls
+        monkeypatch.setenv("MATINV_COMPILE_CACHE", "0")
+        assert C.enable_compile_cache() is None
+    finally:
+        monkeypatch.undo()
+        jax.config.update("jax_compilation_cache_dir", prev)

@@ -5,6 +5,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from gpu_matrix_inversion_tpu.ops.lu import (
+    lu_factor,
     lu_factor_blocked,
     lu_solve_fast,
     lu_inverse_fast,
@@ -72,25 +73,21 @@ def test_chunked_getri_matches_oneshot(monkeypatch):
 
 
 def test_pallas_factor_matches_jnp_twin():
-    """The Pallas panel route (search kernel + small (b, b) LU + algebraic
-    assembly) must reproduce the jnp panel loop: identical pivot sequence
-    (GJ and LU partial pivoting choose the same pivots) and the same packed
-    factor to fp32 rounding."""
+    """The blocked swap-free panel route must reproduce the unblocked
+    getrf spec (``lu_factor``): identical pivot sequence and the same
+    backward-error tier."""
     from gpu_matrix_inversion_tpu.ops.lu import _lu_factor_blocked_2d
     import jax.numpy as jnp
 
     for n, b in ((192, 64), (256, 128)):
         a = jnp.asarray(hollow_random_matrix(n, seed=300 + n))
-        lu_f, perm_f, ok_f = _lu_factor_blocked_2d(
-            a, b=b, pivot=True, use_pallas=True, interpret=True)
-        lu_j, perm_j, ok_j = _lu_factor_blocked_2d(
-            a, b=b, pivot=True, use_pallas=False)
+        lu_f, perm_f, ok_f = _lu_factor_blocked_2d(a, b=b, pivot=True)
+        lu_j, perm_j, ok_j = lu_factor(a)
         assert bool(ok_f) and bool(ok_j)
         np.testing.assert_array_equal(np.asarray(perm_f), np.asarray(perm_j))
-        # The packed factors differ by rounding path only (the Pallas route
-        # computes L21 via a triangular solve, the twin by sequential
-        # elimination): compare backward errors, not elements. Measured
-        # ~1.5e-7 normalized vs the twin's ~3e-8 (both ~fp32 eps).
+        # The packed factors differ by rounding path only (blocked rank-b
+        # updates vs sequential rank-1): compare backward errors, not
+        # elements.
         scale = float(np.abs(np.asarray(a)).max())
 
         def backward(lu, perm):
@@ -129,11 +126,9 @@ def test_grouped_factor_matches_flat():
             a = a + np.eye(n, dtype=a.dtype) * (np.abs(a).sum(axis=1).max())
         a = jnp.asarray(a)
         lu_g, perm_g, ok_g = _lu_factor_blocked_jit(
-            a, pivot=pivot, b=b, use_pallas=True, interpret=True,
-            search_bf16=False, group=g)
+            a, pivot=pivot, b=b, group=g)
         lu_f, perm_f, ok_f = _lu_factor_blocked_jit(
-            a, pivot=pivot, b=b, use_pallas=True, interpret=True,
-            search_bf16=False, group=0)
+            a, pivot=pivot, b=b, group=0)
         assert bool(ok_g) and bool(ok_f)
         np.testing.assert_array_equal(np.asarray(perm_g), np.asarray(perm_f))
         err_g, err_f = backward(a, lu_g, perm_g), backward(a, lu_f, perm_f)
@@ -142,7 +137,7 @@ def test_grouped_factor_matches_flat():
 
 
 def test_pallas_factor_reconstructs_fp32():
-    """PA = LU through the public wrapper on the Pallas fp32 route,
+    """PA = LU through the public wrapper on the grouped fp32 route,
     including a padded (non-multiple) order."""
     n = 200
     a = hollow_random_matrix(n, seed=114)

@@ -1,51 +1,13 @@
-"""Tests of the Pallas verification GEMM (C8 parity) and the Newton-Schulz
-solver family."""
+"""Tests of the Newton-Schulz solver family."""
 
 import numpy as np
 import pytest
 
-from gpu_matrix_inversion_tpu.ops.matmul import pallas_matmul
 from gpu_matrix_inversion_tpu.models.newton_schulz import newton_schulz_inverse
 from gpu_matrix_inversion_tpu.models.solver import inverse
 from gpu_matrix_inversion_tpu.utils.generators import (
     well_conditioned_matrix, hollow_random_matrix)
 from gpu_matrix_inversion_tpu.utils.residual import relative_residual
-
-
-def test_pallas_matmul_matches_numpy():
-    rng = np.random.default_rng(0)
-    a = rng.standard_normal((300, 200)).astype(np.float32)
-    b = rng.standard_normal((200, 150)).astype(np.float32)
-    out = np.asarray(pallas_matmul(a, b, block=128))
-    np.testing.assert_allclose(out, a @ b, rtol=1e-4, atol=1e-3)
-
-
-def test_pallas_matmul_square_aligned():
-    rng = np.random.default_rng(1)
-    a = rng.standard_normal((256, 256)).astype(np.float32)
-    out = np.asarray(pallas_matmul(a, a, block=128))
-    np.testing.assert_allclose(out, a @ a, rtol=1e-4, atol=1e-2)
-
-
-def test_pallas_matmul_bf16_operands():
-    # ADVICE r2: the bf16 operand path must be exercised — its in-kernel dot
-    # takes the DEFAULT-precision branch (a HIGHEST contract on bf16 operands
-    # fails to Mosaic-compile on hardware). bf16 MXU passes accumulate in
-    # fp32, so against an fp32 reference only the input rounding shows up.
-    rng = np.random.default_rng(2)
-    a = rng.standard_normal((192, 160)).astype(np.float32)
-    b = rng.standard_normal((160, 128)).astype(np.float32)
-    import jax.numpy as jnp
-    out = np.asarray(pallas_matmul(jnp.asarray(a, jnp.bfloat16),
-                                   jnp.asarray(b, jnp.bfloat16), block=128),
-                     dtype=np.float32)
-    ref = a.astype(np.float32) @ b.astype(np.float32)
-    np.testing.assert_allclose(out, ref, rtol=0.05, atol=0.5)
-
-
-def test_pallas_matmul_rejects_bad_shapes():
-    with pytest.raises(ValueError):
-        pallas_matmul(np.zeros((3, 4), np.float32), np.zeros((5, 6), np.float32))
 
 
 def test_newton_schulz_well_conditioned():
@@ -101,11 +63,11 @@ def test_solver_ns_method():
 
 def test_refine_keeps_miscompile_barrier():
     """The optimization_barrier guards in ops/refine.py are load-bearing:
-    they pin the fusion seam that an XLA:TPU rewrite otherwise crosses,
-    corrupting refined inverses by ~4 orders of magnitude (hollow n=1950,
-    TPU-only, invisible on CPU -- see the comment at the guard). CPU tests
-    cannot observe the numeric failure, so assert the barrier survives in
-    the traced program structurally."""
+    they pin the fusion seam that a compiler rewrite once crossed,
+    corrupting refined inverses by orders of magnitude (hollow n=1950,
+    invisible on CPU -- see the comment at the guard; chip_smoke.py checks
+    that input on the card). CPU tests cannot observe the numeric failure,
+    so assert the barrier survives in the traced program structurally."""
     import jax
     import jax.numpy as jnp
     from gpu_matrix_inversion_tpu.ops.refine import (newton_schulz_refine,

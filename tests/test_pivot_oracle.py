@@ -1,16 +1,16 @@
-"""Pivot-sequence oracle tests (VERDICT r1 #7).
+"""Pivot-sequence oracle tests.
 
-The packed-key argmax in the Pallas search kernel truncates low mantissa
-bits to make room for the row index (ops/blocked.py), so its choice on
-near-tie columns can legitimately differ from true partial pivoting. These
-tests pin down the semantics against LAPACK (scipy) and the full-precision
-jnp search:
+These pin the semantics of the swap-free panel factorization that the
+blocked and sharded paths use (``ops/blocked._factor_panel``) against LAPACK
+(scipy) and the plain jnp search:
 
-- exact agreement with LAPACK's getrf pivot order when |values| are well
-  separated (reference maxPivot semantics, matrix_inversion_FP32.cpp:68-142);
-- on engineered near-ties, the kernel must still pick a within-epsilon-max
-  row (validity), with ties broken toward the smallest row index;
-- the m > 8192 block-halving and m > 16384 bf16 gates are unit-tested.
+- exact agreement with LAPACK's getrf pivot order (reference maxPivot
+  semantics, matrix_inversion_FP32.cpp:68-142), with prior pivot rows
+  excluded by the used mask;
+- on exact ties the smallest row index wins, and any separation at all
+  follows the true max (the search is a full-precision argmax);
+- the composite transform matches the block-inverse algebra it stands for,
+  and a panel with no usable pivot trips the ok flag.
 """
 
 import numpy as np
@@ -19,10 +19,9 @@ import scipy.linalg
 
 import jax.numpy as jnp
 
-from gpu_matrix_inversion_tpu.ops.blocked import (_panel_factor,
+from gpu_matrix_inversion_tpu.ops.blocked import (_factor_panel,
                                                   _panel_pivots_logical,
-                                                  _pivot_search,
-                                                  _select_block_params)
+                                                  _panel_width)
 from gpu_matrix_inversion_tpu.ops.lu import lu_factor
 
 
@@ -63,7 +62,7 @@ def test_logical_panel_matches_lapack(m, b):
     rng = np.random.default_rng(m + b)
     strip = rng.standard_normal((m, b))
     used = jnp.zeros((m, 1), jnp.float64)
-    pivrows, _, ok = _panel_pivots_logical(
+    pivrows, _, ok, _ = _panel_pivots_logical(
         jnp.asarray(strip), used, jnp.int32(0), m=m, b=b, pivot=True)
     assert bool(ok)
     np.testing.assert_array_equal(np.asarray(pivrows),
@@ -72,195 +71,121 @@ def test_logical_panel_matches_lapack(m, b):
 
 @pytest.mark.parametrize("m,b", [(256, 32), (512, 64)])
 def test_kernel_pivots_match_logical(m, b):
-    """On well-separated values the truncated packed key must agree exactly
-    with the full-precision jnp argmax search."""
+    """The composite panel factorization picks exactly the logical search's
+    pivots -- which are LAPACK's on the rows the used mask leaves -- and
+    never a used row."""
     rng = np.random.default_rng(7 * m + b)
-    # Exponentially-spread magnitudes: relative gaps far above the
-    # packed-key truncation (2^-15 at m=256).
     mag = np.exp(rng.uniform(0.0, 8.0, (m, b)))
     strip = (mag * rng.choice([-1.0, 1.0], (m, b))).astype(np.float32)
     used = jnp.zeros((m, 1), jnp.float32).at[:8].set(1.0)  # exclude rows 0-7
 
-    search = jnp.asarray(strip)
-    got = _pivot_search(search, jnp.int32(0), used, m=m, b=b, pivot=True,
-                        interpret=True)
-    want, _, _ = _panel_pivots_logical(
-        search, used, jnp.int32(0), m=m, b=b, pivot=True)
+    got, _, ok = _factor_panel(jnp.asarray(strip), jnp.int32(0), used, m=m,
+                               b=b, pivot=True)
+    want, _, _, _ = _panel_pivots_logical(
+        jnp.asarray(strip), used, jnp.int32(0), m=m, b=b, pivot=True)
+    assert bool(ok)
     np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
     assert not np.any(np.isin(np.asarray(got), np.arange(8)))  # used mask
+    np.testing.assert_array_equal(
+        np.asarray(got), 8 + lapack_pivot_rows(strip[8:].astype(np.float64)))
 
 
 @pytest.mark.parametrize("m,b", [(256, 32), (384, 64)])
 def test_panel_factor_composite_matches_algebra(m, b):
-    """The fused kernel's composite C^T must match the block-inverse
-    algebra C = (E - L_masked) @ D^-1 - E it fuses away (round 3: the
-    rank-b form replacing search + small-inverse + rank-2b update)."""
+    """The panel's transformed selector T E must match the block-inverse
+    algebra of its composite C = T E - E = (E - L_masked) @ D^-1 - E, and
+    applying it as X * (1 - rowmask) + (T E) @ X[pivrows] must eliminate
+    every other row and deposit D^-1 @ D at the pivot rows."""
     rng = np.random.default_rng(13 * m + b)
     strip = rng.standard_normal((m, b)).astype(np.float32)
     used = jnp.zeros((m, 1), jnp.float32).at[:8].set(1.0)
 
-    pivrows, ct, ok = _panel_factor(jnp.asarray(strip), jnp.int32(0), used,
-                                    m=m, b=b, pivot=True, interpret=True)
+    pivrows, te_t, ok = _factor_panel(jnp.asarray(strip), jnp.int32(0),
+                                      used, m=m, b=b, pivot=True)
     assert bool(ok)
-    want, _, _ = _panel_pivots_logical(jnp.asarray(strip), used,
-                                       jnp.int32(0), m=m, b=b, pivot=True)
+    want, _, _, _ = _panel_pivots_logical(jnp.asarray(strip), used,
+                                          jnp.int32(0), m=m, b=b, pivot=True)
     np.testing.assert_array_equal(np.asarray(pivrows), np.asarray(want))
 
     pr = np.asarray(pivrows)
     dblk = strip[pr].astype(np.float64)
     dinv = np.linalg.inv(dblk)
     psel = np.zeros((m, b)); psel[pr, np.arange(b)] = 1.0
-    l_masked = strip.astype(np.float64) * (1 - psel.sum(1, keepdims=True))
-    c_ref = (psel - l_masked) @ dinv - psel
-    np.testing.assert_allclose(np.asarray(ct).T, c_ref, rtol=2e-3,
-                               atol=2e-4 * np.abs(c_ref).max())
+    rowmask = psel.sum(1, keepdims=True)
+    l_masked = strip.astype(np.float64) * (1 - rowmask)
+    te_ref = (psel - l_masked) @ dinv
+    te = np.asarray(te_t, np.float64).T
+    np.testing.assert_allclose(te, te_ref, rtol=2e-3,
+                               atol=2e-4 * np.abs(te_ref).max())
+    np.testing.assert_allclose(te[pr], dinv, rtol=1e-4,
+                               atol=1e-5 * np.abs(dinv).max())
 
-    # Functional check: applying the composite reproduces the eliminated
-    # strip -- pivot rows scaled (D^-1 rows), all other rows annihilated.
-    x_new = strip.astype(np.float64) + c_ref @ strip[pr].astype(np.float64)
-    np.testing.assert_allclose(x_new[pr], dinv @ dblk, atol=1e-8)
+    # Functional check: the update zeroes every non-pivot row of the strip
+    # and leaves the identity at the pivot rows.
+    x = strip.astype(np.float64)
+    x_new = x * (1 - rowmask) + te @ x[pr]
+    np.testing.assert_allclose(x_new[pr], np.eye(b), atol=1e-4)
     mask = np.ones(m, bool); mask[pr] = False
-    np.testing.assert_allclose(x_new[mask], 0.0, atol=1e-6)
+    np.testing.assert_allclose(x_new[mask], 0.0, atol=1e-4)
 
 
 def test_panel_factor_flags_zero_pivot():
     """A strip whose unused rows are all zero in some column must trip the
-    kernel's zero-pivot flag (the singular detector the fused path now owns,
-    reference identity-check tier FP32.cpp:814-835)."""
+    panel's zero-pivot flag (the singular detector, reference
+    identity-check tier FP32.cpp:814-835)."""
     m, b = 256, 16
     rng = np.random.default_rng(5)
     strip = rng.standard_normal((m, b)).astype(np.float32)
     strip[8:, 3] = 0.0          # column 3 has no pivot among unused rows
     used = jnp.zeros((m, 1), jnp.float32).at[:8].set(1.0)
-    _, _, ok = _panel_factor(jnp.asarray(strip), jnp.int32(0), used,
-                             m=m, b=b, pivot=True, interpret=True)
+    _, _, ok = _factor_panel(jnp.asarray(strip), jnp.int32(0), used,
+                             m=m, b=b, pivot=True)
     assert not bool(ok)
 
 
-def test_kernel_bf16_pivots_valid():
-    """bf16 search data: exact sequence parity with a rank-1 oracle is NOT
-    guaranteed (the kernel's deferred MXU updates round once in f32 where
-    the oracle rounds per step), so assert validity instead: the pivots
-    form a permutation, respect the used mask, and the end-to-end bf16
-    search still meets the residual gate."""
-    m, b = 256, 32
-    rng = np.random.default_rng(77)
-    strip = rng.standard_normal((m, b)).astype(np.float32)
-    used = jnp.zeros((m, 1), jnp.float32).at[:8].set(1.0)
-    got = np.asarray(_pivot_search(
-        jnp.asarray(strip).astype(jnp.bfloat16), jnp.int32(0), used,
-        m=m, b=b, pivot=True, interpret=True))
-    assert len(np.unique(got)) == b        # no duplicate pivot rows
-    assert not np.any(got < 8)             # used rows excluded
-
-    from gpu_matrix_inversion_tpu.ops.blocked import blocked_inverse
-    from gpu_matrix_inversion_tpu.utils.generators import hollow_random_matrix
-    from gpu_matrix_inversion_tpu.utils.residual import relative_residual
-    a = hollow_random_matrix(384, seed=5)
-    inv, ok = blocked_inverse(a, search_bf16=True, refine=0)
-    assert bool(ok)
-    assert relative_residual(a, np.asarray(inv)) < 1e-4
-
-
 def test_kernel_near_tie_valid_and_first_index():
-    """Engineered near-tie: two rows whose |first-column| values differ
-    below the truncation width. The kernel must pick the SMALLER row index
-    (reversed-index packing) and the pick must be a within-epsilon max."""
+    """Exact tie: the SMALLER row index wins. Any separation, however
+    small, follows the true max (full-precision argmax, no index packing
+    into the value's low bits)."""
     m, b = 256, 32
     rng = np.random.default_rng(3)
     strip = rng.uniform(0.1, 0.9, (m, b)).astype(np.float32)
     v = np.float32(1000.0)
-    strip[200, 0] = v * (1 + 2.0 ** -20)   # true max, below 2^-15 truncation
-    strip[50, 0] = v
+    strip[200, 0] = v
+    strip[50, 0] = -v
     used = jnp.zeros((m, 1), jnp.float32)
-    got = _pivot_search(jnp.asarray(strip), jnp.int32(0), used, m=m, b=b,
-                        pivot=True, interpret=True)
-    p0 = int(np.asarray(got)[0])
-    assert p0 == 50  # tie broken toward the first (smallest) row index
-    assert abs(strip[p0, 0]) >= abs(strip[:, 0]).max() * (1 - 2.0 ** -14)
+    got, _, _ = _factor_panel(jnp.asarray(strip), jnp.int32(0), used, m=m,
+                              b=b, pivot=True)
+    assert int(np.asarray(got)[0]) == 50  # tie -> first (smallest) row
 
-    # Separation above the truncation width must follow the true max.
-    strip[200, 0] = v * (1 + 2.0 ** -10)
-    got = _pivot_search(jnp.asarray(strip), jnp.int32(0), used, m=m, b=b,
-                        pivot=True, interpret=True)
+    strip[200, 0] = np.nextafter(v, np.float32(np.inf))  # one ulp above
+    got, _, _ = _factor_panel(jnp.asarray(strip), jnp.int32(0), used, m=m,
+                              b=b, pivot=True)
     assert int(np.asarray(got)[0]) == 200
 
 
 def test_kernel_wide_index_mask():
-    """m past the old 16384 hard cap: the generalized kmask must still
-    produce valid pivots (15-bit index packing)."""
-    m, b = 16448, 32  # > 16384 -> kmask = 32767
+    """m past 16384: pivot indices far down the matrix survive intact."""
+    m, b = 16448, 32
     rng = np.random.default_rng(11)
     strip = np.zeros((m, b), np.float32)
-    # Keep it cheap in interpret mode: values only in a band + one clear
-    # max per column far down the matrix.
     strip[:64] = rng.uniform(0.1, 1.0, (64, b)).astype(np.float32)
     strip[16400] = np.linspace(100.0, 200.0, b).astype(np.float32)
     used = jnp.zeros((m, 1), jnp.float32)
-    got = _pivot_search(jnp.asarray(strip), jnp.int32(0), used, m=m, b=b,
-                        pivot=True, interpret=True)
-    assert int(np.asarray(got)[0]) == 16400  # index survives the packing
-    want, _, _ = _panel_pivots_logical(
+    got, _, _ = _factor_panel(jnp.asarray(strip), jnp.int32(0), used, m=m,
+                              b=b, pivot=True)
+    assert int(np.asarray(got)[0]) == 16400
+    want, _, _, _ = _panel_pivots_logical(
         jnp.asarray(strip), used, jnp.int32(0), m=m, b=b, pivot=True)
     np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
 
 
 def test_block_param_boundaries():
-    """The b-halving at m > 8192 and the bf16+b=32 regime past 16384 are
-    explicit, and fp64 never routes to Pallas (VERDICT r1 weak #4)."""
-    sel = lambda n, bs=128: _select_block_params(n, bs, jnp.float32, False)
-    assert sel(4096) == (128, True, False)
-    assert sel(8192) == (128, True, False)
-    assert sel(8193) == (64, True, False)       # m rounds past 8192
-    assert sel(16384) == (64, True, False)
-    # explicit bf16 search data keeps b=128 to 16384 (half the VMEM)
-    assert _select_block_params(16384, 128, jnp.float32, True) == (
-        128, True, True)
-    assert sel(16385) == (64, True, True)       # bf16 search data regime
-    assert sel(32769) == (32, True, True)
-    assert sel(65536) == (32, True, True)
-    with pytest.warns(UserWarning, match="Pallas pivot-search reach"):
-        b, use_pallas, _ = _select_block_params(65537, 128, jnp.float32,
-                                                False)
-    assert not use_pallas
-    assert _select_block_params(4096, 128, jnp.float64, False)[1] is False
-
-
-def test_factor_kernel_v2_bit_parity():
-    """The round-4 latency-tuned v2 factor kernel must be BIT-identical to
-    v1 on both modes (search + fused ct) and both pivot settings: same
-    packed-key pivot sequence, same composite transform, same ok flag
-    (the rewrite reorders issue structure, not arithmetic)."""
-    import os
-    from unittest import mock
-    from gpu_matrix_inversion_tpu.ops import blocked as B
-
-    rng = np.random.default_rng(17)
-    for (m, b) in [(256, 32), (512, 128)]:
-        strip = jnp.asarray(rng.standard_normal((m, b)).astype(np.float32))
-        used = jnp.zeros((m, 1), jnp.float32)
-        kb = jnp.int32(0)
-        for pivot in (True, False):
-            outs = {}
-            for ver in ("v1", "v2"):
-                with mock.patch.dict(os.environ,
-                                     {"MATINV_FACTOR_KERNEL": ver}):
-                    pr, ct, ok = B._panel_factor(strip, kb, used, m=m, b=b,
-                                                 pivot=pivot, interpret=True)
-                    pr2 = B._pivot_search(strip, kb, used, m=m, b=b,
-                                          pivot=pivot, interpret=True)
-                outs[ver] = (np.asarray(pr), np.asarray(ct), bool(ok),
-                             np.asarray(pr2))
-            for i in range(4):
-                if i == 2:
-                    assert outs["v1"][i] == outs["v2"][i]
-                else:
-                    np.testing.assert_array_equal(outs["v1"][i],
-                                                  outs["v2"][i])
-        # Singular strip must flag ok=False on both kernels.
-        ones = jnp.asarray(np.ones((m, b), np.float32))
-        for ver in ("v1", "v2"):
-            with mock.patch.dict(os.environ, {"MATINV_FACTOR_KERNEL": ver}):
-                _, _, ok = B._panel_factor(ones, kb, used, m=m, b=b,
-                                           pivot=True, interpret=True)
-            assert not bool(ok), ver
+    """The panel width is the requested width, capped by the 8-rounded
+    order, for every dtype and size (no device-memory ladder)."""
+    assert _panel_width(4096, 128) == 128
+    assert _panel_width(16384, 128) == 128
+    assert _panel_width(65537, 128) == 128
+    assert _panel_width(100, 256) == 104
+    assert _panel_width(3, 128) == 8
+    assert _panel_width(4096, 40) == 40

@@ -1,9 +1,10 @@
 """Static lint: every device dot must carry an explicit ``precision=``.
 
-On TPU the *default* f32 ``dot_general`` rounds its data operands to
-bf16 — including inside Pallas kernels, and including dots with a one-hot
-operand (the one-hot does not make the contraction exact).  That silent
-~1e-3 rounding caused two real bugs in this repo:
+On accelerators the *default* f32 ``dot_general`` may round its data
+operands to lower precision (TF32 on an NVIDIA GPU keeps ~3 decimal
+digits) — including inside Pallas kernels, and including dots with a
+one-hot operand (the one-hot does not make the contraction exact).  That
+silent rounding caused two real bugs in this repo:
 
 - round 1: default-precision GEMMs cost ~4 digits of residual
   (DESIGN.md "performance facts");
@@ -19,8 +20,7 @@ as an attribute (``jnp.matmul``) or a bare imported name.  The ``@``
 operator cannot carry a precision argument at all, so any MatMult in
 package code is flagged outright.  Host-side ``np.*`` dots are exempt
 (NumPy is exact).  Intentionally lower tiers (e.g. the Newton-Schulz
-correction GEMM one tier down, or the bf16 search's DEFAULT dots) still
-pass — the requirement is that the choice be *explicit*.
+correction GEMM one tier down) still pass — the requirement is that the choice be *explicit*.
 """
 
 from __future__ import annotations
@@ -85,5 +85,5 @@ def test_every_device_dot_has_explicit_precision():
     for path in sorted(root.rglob("*.py")):
         offenders.extend(_dot_offences(path))
     assert not offenders, (
-        "device dots without explicit precision= (TPU default silently "
+        "device dots without explicit precision= (the default may silently "
         "rounds f32 operands to bf16):\n  " + "\n  ".join(offenders))

@@ -84,28 +84,6 @@ def test_sharded_bf16_io_contract():
                                  np.asarray(invb[i], np.float32)) < 1e-2
 
 
-def test_sharded_batched_map_matches_vmap():
-    """The lax.map batched lowering (used whenever the Pallas factor
-    kernels are active -- their vmapped lowering hangs the v5e) must be
-    bit-identical to the vmap lowering on the same mesh/geometry."""
-    from jax.sharding import NamedSharding, PartitionSpec as P
-    from gpu_matrix_inversion_tpu.parallel.sharded import (
-        _sharded_batched_run, _sharded_params)
-
-    mesh = make_device_mesh((2, 4), ("dp", "tp"), platform="cpu")
-    a = jnp.asarray(np.stack(
-        [hollow_random_matrix(96, seed=s) for s in range(4)]))
-    b, m, group, _, sb = _sharded_params(96, 16, 4, a.dtype, False, None)
-    outs = []
-    for batch_map in (False, True):
-        run = _sharded_batched_run(mesh, 96, m, b, group, True, "dp", "tp",
-                                   False, sb, "highest", batch_map)
-        inv, ok = run(jax.device_put(a, NamedSharding(mesh, P("dp"))))
-        assert bool(np.all(np.asarray(ok)))
-        outs.append(np.asarray(inv))
-    np.testing.assert_array_equal(outs[0], outs[1])
-
-
 def test_sharded_fp64():
     mesh = make_device_mesh(4, ("x",), platform="cpu")
     a = hollow_random_matrix(128, seed=72, dtype=np.float64)
@@ -115,11 +93,9 @@ def test_sharded_fp64():
 
 
 def test_sharded_matches_blocked_on_one_device_mesh():
-    """Round-3 port gate (VERDICT r2 #1): on a 1-device mesh the sharded
-    path runs the SAME shared _group_factor + windowed update as the
-    single-chip blocked driver, so the result must match bit-for-bit
-    (both on the jnp factor path -- interpret-mode Pallas is the
-    single-chip CPU default but not available under shard_map)."""
+    """On a 1-device mesh the sharded path runs the SAME shared
+    _group_factor + windowed update as the single-device blocked driver,
+    so the result must match bit-for-bit."""
     from gpu_matrix_inversion_tpu.ops.blocked import _blocked_inverse_jit
 
     mesh = make_device_mesh(1, ("x",), platform="cpu")
@@ -127,8 +103,7 @@ def test_sharded_matches_blocked_on_one_device_mesh():
     inv_sh, ok_sh = sharded_blocked_inverse(a, mesh=mesh, block_size=32,
                                             refine=0)
     inv_bl, ok_bl = _blocked_inverse_jit(
-        jnp.asarray(a), pivot=True, block_size=32, use_pallas=False,
-        interpret=False, precision="highest", search_bf16=False,
+        jnp.asarray(a), pivot=True, block_size=32, precision="highest",
         group_size=32, refine=0)
     assert bool(ok_sh) and bool(ok_bl)
     np.testing.assert_array_equal(np.asarray(inv_sh), np.asarray(inv_bl))
@@ -149,7 +124,7 @@ def test_sharded_group_straddles_shards():
 
 
 def test_sharded_production_geometry():
-    """VERDICT r3 #3: the mesh path at PRODUCTION geometry -- n=4096,
+    """The mesh path at PRODUCTION geometry -- n=4096,
     b=128, the default group width (gw=1536) -- on a 4-device mesh
     (w=2048), so the features toy shapes never reach actually execute
     multi-device: the two-owner straddling strip gather (group 1 spans
@@ -160,7 +135,7 @@ def test_sharded_production_geometry():
     from gpu_matrix_inversion_tpu.parallel.sharded import _sharded_params
 
     n, d = 4096, 4
-    b, m, group, _, _ = _sharded_params(n, 128, d, jnp.float32, False, None)
+    b, m, group = _sharded_params(n, 128, d, None)
     assert (b, m) == (128, 4096) and group == 12  # the production gw=1536
     w = 2 * m // d
     gw = group * b
@@ -175,8 +150,8 @@ def test_sharded_production_geometry():
 
 
 def test_sharded_batched_dp_tp_panel_width():
-    """VERDICT r4 #6: the 2D dp x tp mesh at REAL panel width -- b=128
-    shard arithmetic under a dp axis never executed above b=16 before.
+    """The 2D dp x tp mesh at REAL panel width -- b=128 shard arithmetic
+    under a dp axis.
     n=768 on a (2, 4) mesh: m=1024, w=2m/tp=512, and group_size=3 makes
     gw=384 straddle the shard boundaries (kb0=384 spans 384:768 across
     512), so the two-owner strip gather, the straddling deposits, AND the
@@ -184,7 +159,7 @@ def test_sharded_batched_dp_tp_panel_width():
     from gpu_matrix_inversion_tpu.parallel.sharded import _sharded_params
 
     n, tp = 768, 4
-    b, m, group, _, _ = _sharded_params(n, 128, tp, jnp.float32, False, 3)
+    b, m, group = _sharded_params(n, 128, tp, 3)
     assert b == 128 and m == 1024 and group == 3
     w = 2 * m // tp
     gw = group * b
@@ -196,13 +171,12 @@ def test_sharded_batched_dp_tp_panel_width():
     assert inv.shape == a.shape
     assert bool(np.all(np.asarray(ok)))
     for i in range(2):
-        # Raw (no-refine) path at n=768: the BASELINE <=1e-4 gate (the
-        # single-chip raw 4096^2 sits at 3.4e-5 for the same reason).
+        # Raw (no-refine) path at n=768: the BASELINE <=1e-4 gate.
         assert relative_residual(a[i], np.asarray(inv)[i]) < 1e-4
 
 
 def test_sharded_solve():
-    """solve() through the sharded method (VERDICT r3 #3): the mesh
+    """solve() through the sharded method: the mesh
     inverse feeds the solve GEMM; the result must solve the system."""
     from gpu_matrix_inversion_tpu.models.solver import solve
 
@@ -227,39 +201,16 @@ def test_sharded_refine_polish():
 
 
 def test_driver_dryrun_multichip():
-    """Regression gate for MULTICHIP_r01 (VERDICT r1 #1): the driver's
-    8-device dryrun must run end-to-end on the virtual CPU mesh."""
+    """The 8-device dryrun must run end-to-end on the virtual CPU mesh."""
     import importlib.util
+    import pathlib
 
     spec = importlib.util.spec_from_file_location(
-        "__graft_entry__", "/root/repo/__graft_entry__.py")
+        "__graft_entry__",
+        pathlib.Path(__file__).resolve().parents[1] / "__graft_entry__.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     mod.dryrun_multichip(8)
-
-
-def test_sharded_params_regate_vmem_after_mesh_rounding():
-    """Review fix: rounding m up to b*d for a non-power-of-two mesh must
-    re-gate b/search_bf16 against the ROUNDED m, or the fp32 pivot-search
-    kernel launches past its sized VMEM budget (b=128 is only safe to
-    m=8192; a d=3 mesh at n=8100 used to round 8192 -> 8448 while keeping
-    b=128)."""
-    import jax.numpy as jnp
-    from gpu_matrix_inversion_tpu.ops.blocked import _select_block_params
-    from gpu_matrix_inversion_tpu.parallel.sharded import _sharded_params
-
-    for n, d in ((8100, 3), (16350, 3), (8100, 8), (4096, 6), (513, 3)):
-        b, m, group, use_pallas, sb = _sharded_params(
-            n, 128, d, jnp.float32, False, None)
-        assert m % (b * d) == 0, (n, d, b, m)
-        assert m >= n
-        # Fixpoint: the gating choice for the rounded m is the choice used.
-        b2, _, sb2 = _select_block_params(m, b, jnp.float32, sb)
-        assert b2 == b, (n, d, b, b2, m)
-        assert sb2 == sb
-        # The documented budgets themselves.
-        if m > 8192 and not sb:
-            assert b <= 64, (n, d, b, m)
 
 
 def test_default_platform_devices_accepts_string_default():
@@ -280,15 +231,45 @@ def test_default_platform_devices_accepts_string_default():
 
 
 def test_batched_fused_route_gate():
-    """dp-only TPU meshes with VMEM-sized matrices take the gridded fused
-    kernel per device; anything else keeps the column-sharded panel body
-    (CPU meshes cannot run Pallas interpret inside shard_map)."""
+    """dp-only GPU meshes with fused-sized matrices take the fused kernel
+    per device; anything else keeps the column-sharded panel body (CPU
+    meshes run the jnp route)."""
     import jax.numpy as jnp
     from gpu_matrix_inversion_tpu.parallel.sharded import _batched_fused_route
 
-    assert _batched_fused_route(1, 128, jnp.float32, True)
-    assert _batched_fused_route(1, 640, jnp.bfloat16, True)
-    assert not _batched_fused_route(2, 128, jnp.float32, True)   # tp > 1
-    assert not _batched_fused_route(1, 641, jnp.float32, True)   # past VMEM
-    assert not _batched_fused_route(1, 128, jnp.float32, False)  # CPU mesh
-    assert not _batched_fused_route(1, 128, jnp.float64, True)   # fp64
+    assert _batched_fused_route(1, 128, jnp.float32, "gpu")
+    assert _batched_fused_route(1, 100, jnp.bfloat16, "gpu")
+    assert not _batched_fused_route(2, 128, jnp.float32, "gpu")   # tp > 1
+    assert not _batched_fused_route(1, 129, jnp.float32, "gpu")   # too big
+    assert not _batched_fused_route(1, 128, jnp.float32, "cpu")   # CPU mesh
+    assert not _batched_fused_route(1, 128, jnp.float64, "gpu")   # fp64
+
+
+def test_make_device_mesh_raises_instead_of_falling_back():
+    """A mesh larger than the default platform has raises; it never moves
+    to another platform unasked (CPU meshes come only from
+    platform="cpu" or a CPU default)."""
+    from unittest import mock
+    from gpu_matrix_inversion_tpu.parallel import mesh as M
+
+    one_gpu = [mock.Mock(platform="gpu")]
+    with mock.patch.object(M, "default_platform_devices",
+                           return_value=one_gpu), \
+            mock.patch.object(M, "default_platform", return_value="gpu"):
+        with pytest.raises(ValueError, match="mesh of 4 devices"):
+            M.make_device_mesh(4, ("x",))
+    with pytest.raises(ValueError, match="only 8 available"):
+        make_device_mesh(9, ("x",), platform="cpu")
+
+
+def test_sharded_params_round_to_mesh():
+    """m rounds n up so panels tile every shard (b*d | m), and the group
+    never spans more than two shards (gw <= w = 2m/d)."""
+    from gpu_matrix_inversion_tpu.parallel.sharded import _sharded_params
+
+    for n, bs, d in ((8100, 128, 3), (16350, 128, 3), (4096, 128, 6),
+                     (513, 128, 3), (200, 32, 4), (4096, 128, 4)):
+        b, m, group = _sharded_params(n, bs, d, None)
+        assert b == min(bs, -(-n // 8) * 8), (n, b)
+        assert m % (b * d) == 0 and n <= m < n + b * d, (n, d, m)
+        assert group * b <= 2 * m // d, (n, d, group)

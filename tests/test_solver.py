@@ -34,12 +34,14 @@ def test_solve():
 
 
 def test_auto_routes_large_n_to_sharded(monkeypatch):
-    """VERDICT r2 #7: past the single-chip gate, auto must pick the mesh
-    path when one is available (gate shrunk so the test stays cheap)."""
+    """Past one device's memory gate, auto must pick the mesh path when one
+    is available (the CPU reports no memory limit, so a small one is
+    given here to keep the test cheap)."""
     import jax
     import gpu_matrix_inversion_tpu.models.solver as S
 
-    monkeypatch.setattr(S, "SHARDED_AUTO_MIN_N", 128)
+    monkeypatch.setattr(S, "_device_bytes_limit", lambda a: 16 * 128 * 128)
+    assert S.sharded_auto_min_n(16 * 128 * 128) == 128
     a = hollow_random_matrix(160, seed=63)
     assert S._resolve("auto", jax.numpy.asarray(a)) == "sharded"
     inv, ok = inverse(a, method="auto", block_size=32)
@@ -97,16 +99,56 @@ def test_solve_1d_rhs_with_refinement():
 
 
 def test_inverter_threads_precision_and_search():
-    """Review finding: config precision/search_bf16 were dead knobs."""
+    """Review finding: config precision was a dead knob."""
     import numpy as np
     from gpu_matrix_inversion_tpu.models.solver import Inverter
     from gpu_matrix_inversion_tpu.utils.generators import hollow_random_matrix
 
     a = hollow_random_matrix(96, seed=5)
     inv = Inverter(dtype="float32", method="blocked", precision="high",
-                   search_bf16=True, refine_iters=0)
+                   refine_iters=0)
     x, ok = inv.inverse(a)
     assert bool(ok)
     r = np.linalg.norm(a.astype(np.float64) @ np.asarray(x, np.float64)
                        - np.eye(96))
     assert r < 1e-1  # bf16x3 trailing updates: loose but finite gate
+
+
+def test_sharded_auto_min_n_from_bytes_limit():
+    """The auto->sharded gate: the first order whose (m, 2m) slot layout
+    takes at least half the device's memory (8 m^2 bytes in fp32)."""
+    from gpu_matrix_inversion_tpu.models.solver import sharded_auto_min_n
+
+    assert sharded_auto_min_n(2 ** 34) == 32768           # 16 GiB
+    limit = 60 * 10 ** 9
+    n = sharded_auto_min_n(limit)
+    assert 8 * n * n >= limit / 2 > 8 * (n - 1) ** 2
+    n64 = sharded_auto_min_n(limit, itemsize=8)
+    assert 16 * n64 * n64 >= limit / 2 > 16 * (n64 - 1) ** 2
+
+
+def test_resolve_by_platform():
+    """The route is an explicit choice by shape, dtype and platform: the
+    fused kernel on CUDA devices (for the dtypes and orders it serves), the
+    jnp spec on the CPU -- also for an explicit method="fused"."""
+    from unittest import mock
+    import jax.numpy as jnp
+    import gpu_matrix_inversion_tpu.models.solver as S
+
+    small = jnp.zeros((8, 64, 64), jnp.float32)
+    single = jnp.zeros((100, 100), jnp.float32)
+    big = jnp.zeros((1024, 1024), jnp.float32)
+    f64 = jnp.zeros((8, 64, 64), jnp.float64)
+    wide = jnp.zeros((4, 256, 256), jnp.float32)
+    assert S._resolve("auto", small) == "spec"
+    assert S._resolve("fused", small) == "spec"
+    assert S._resolve("auto", big) == "blocked"
+    with mock.patch.object(S, "platform_of", return_value="gpu"):
+        assert S._resolve("auto", small) == "fused"
+        assert S._resolve("auto", single) == "fused"
+        assert S._resolve("fused", small) == "fused"
+        assert S._resolve("auto", big) == "blocked"
+        assert S._resolve("auto", f64) == "spec"        # fp64: no kernel
+        assert S._resolve("fused", f64) == "spec"
+        assert S._resolve("auto", wide) == "blocked"    # past FUSED_MAX_N
+        assert S._resolve("lu", small) == "lu"          # explicit methods

@@ -5,7 +5,7 @@ import io
 from gpu_matrix_inversion_tpu.benchmarks.sweep import (
     reference_sizes,
     sweep_numpy,
-    sweep_tpu,
+    sweep_device,
 )
 
 
@@ -28,7 +28,7 @@ def test_numpy_sweep_rows():
 
 def test_device_sweep_rows():
     out = io.StringIO()
-    sweep_tpu(20, out, method="spec", repeat=1)
+    sweep_device(20, out, method="spec", repeat=1)
     rows = out.getvalue().strip().splitlines()
     assert len(rows) == 2
     cols = rows[-1].split()
@@ -40,7 +40,7 @@ def test_device_sweep_sharded_method():
     """--method sharded drives the mesh path through the same protocol
     (on the CPU suite: a mesh over the 8 virtual devices)."""
     out = io.StringIO()
-    sweep_tpu(0, out, method="sharded", repeat=1, sizes=[64])
+    sweep_device(0, out, method="sharded", repeat=1, sizes=[64])
     cols = out.getvalue().strip().splitlines()[-1].split()
     assert int(cols[0]) == 64 and len(cols) == 8
     assert float(cols[7]) < 1e-4
@@ -48,7 +48,7 @@ def test_device_sweep_sharded_method():
 
 def test_device_sweep_amortized_column():
     out = io.StringIO()
-    sweep_tpu(20, out, method="spec", repeat=1, amortize=3)
+    sweep_device(20, out, method="spec", repeat=1, amortize=3)
     rows = out.getvalue().strip().splitlines()
     cols = rows[-1].split()
     assert len(cols) == 9  # trailing amortized per-inversion time
@@ -58,7 +58,7 @@ def test_device_sweep_amortized_column():
 def test_device_sweep_spd_cholesky():
     """--spd generates SPD inputs so --method cholesky sweeps cleanly."""
     out = io.StringIO()
-    sweep_tpu(0, out, method="cholesky", repeat=1, sizes=[48, 96], spd=True)
+    sweep_device(0, out, method="cholesky", repeat=1, sizes=[48, 96], spd=True)
     rows = out.getvalue().strip().splitlines()
     assert len(rows) == 2
     for row in rows:
